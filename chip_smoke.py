@@ -11,11 +11,15 @@ its lines and any failure ending the run with a non-zero exit:
 2. build: every kernel under ``multimodal_lipread_torch/csrc`` with plain
    ``nvcc`` (one process per source, all at once), with the ``-Xptxas -v``
    report of registers, shared memory and spills;
-3. kernel vs plain: the log-mel kernel against ``log_mel_reference`` on the
-   card at B = 32 and 128, both normalize modes, to 1e-4 absolute; times of
-   the kernel, the plain version and a ``torch.stft`` log-mel (a partial
-   yardstick: no single PyTorch call computes the whole function) with CUDA
-   events;
+3. kernel vs plain: per batch (B = 32 and 128), the kernel's launch
+   configuration (grid, shared memory, registers, spills, blocks per SM,
+   waves, and how many 4-block clusters would fit); the kernel's and the
+   plain version's error against a float64 evaluation of the same function
+   (a diagnostic); the log-mel kernel against ``log_mel_reference`` on the
+   card in both normalize modes, to 1e-4 absolute; times of the kernel, the
+   plain version and a ``torch.stft`` log-mel (a partial yardstick: no
+   single PyTorch call computes the whole function) with CUDA events; the
+   time of each phase inside the kernel, from its own timestamps;
 4. serve: a GLips-shaped tree of WAV clips made from ``--seed`` in a
    temporary directory, a full-width vgg_lstm (VGG16-BN, BiLSTM 2 x 128,
    4 classes, input 117, float32) with weights drawn from ``--seed``, saved
@@ -123,15 +127,17 @@ def stft_log_mel(wave: torch.Tensor, window: torch.Tensor, fb: torch.Tensor) -> 
 
 def logmel_bound_ms(batch: int) -> tuple:
     """(bound ms, 'operations' or 'bytes') of the log-mel at ``batch`` clips:
-    the DFT and mel products the output needs (no zero padding) at the fp32
-    peak, against each kernel input (waveforms, basis, filterbank) read once
-    and the output written once."""
-    from multimodal_lipread_torch.ops.logmel_cuda import kernel_basis
-    from multimodal_lipread_torch.ops.logmel import (
-        N_FFT, N_FREQS, N_MELS, NUM_FRAMES, NUM_SAMPLES, mel_filterbank)
+    the DFT at 201 frequencies and the mel product over the filterbank's
+    nonzero weights (no zero padding, no zero weights) at the fp32 peak,
+    against each kernel input (waveforms, basis, mel table) read once and the
+    output written once."""
+    from multimodal_lipread_torch.ops.logmel_cuda import kernel_basis, kernel_mel_table
+    from multimodal_lipread_torch.ops.logmel import N_FFT, N_FREQS, N_MELS, NUM_FRAMES, NUM_SAMPLES
 
-    flops = batch * (2 * NUM_FRAMES * N_FFT * 2 * N_FREQS + 2 * NUM_FRAMES * N_FREQS * N_MELS)
-    nbytes = batch * (NUM_SAMPLES + N_MELS * NUM_FRAMES) * 4 + kernel_basis().nbytes + mel_filterbank().nbytes
+    first, bands = kernel_mel_table()
+    flops = batch * (2 * NUM_FRAMES * N_FFT * 2 * N_FREQS + 2 * NUM_FRAMES * np.count_nonzero(bands))
+    nbytes = (batch * (NUM_SAMPLES + N_MELS * NUM_FRAMES) * 4
+              + kernel_basis().nbytes + first.nbytes + bands.nbytes)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -146,7 +152,22 @@ def phase_kernel(seed: int) -> dict:
     fb = torch.from_numpy(np.ascontiguousarray(mel_filterbank())).to(DEVICE)
     max_err, rows, failures = 0.0, {}, []
     for batch in KERNEL_BATCHES:
+        cfg = logmel_cuda.launch_config(batch)
+        blocks, sms = cfg["grid_x"] * cfg["grid_y"], torch.cuda.get_device_properties(0).multi_processor_count
+        log("kernel", f"logmel B={batch} launch: grid ({cfg['grid_x']}, {cfg['grid_y']}) x {cfg['threads']} threads, "
+                      f"dynamic smem {cfg['dynamic_smem_bytes']} B + static {cfg['static_smem_bytes']} B, "
+                      f"{cfg['registers']} registers, {cfg['local_bytes']} B local (spills), "
+                      f"{cfg['blocks_per_sm']} block(s)/SM: {blocks} blocks in "
+                      f"{-(-blocks // (cfg['blocks_per_sm'] * sms))} wave(s) on {sms} SMs, no cluster "
+                      f"(4-block clusters, one per clip, would fit {cfg['clusters_of_4']} at once)")
         wave = torch.from_numpy((rng.standard_normal((batch, 20000)) * 1000).astype(np.float32)).to(DEVICE)
+        # diagnostic: both fp32 versions against an exact (float64) evaluation
+        exact = {n: logmel_cuda.log_mel_float64(wave, n) for n in (False, True)}
+        diag = {n: ((logmel_cuda.log_mel(wave, n).double() - exact[n]).abs().max().item(),
+                    (log_mel_reference(wave, n).double() - exact[n]).abs().max().item()) for n in (False, True)}
+        log("kernel", f"logmel B={batch} vs float64 on the card (diagnostic): normalize=False kernel "
+                      f"{diag[False][0]:.3e} plain {diag[False][1]:.3e} | normalize=True kernel "
+                      f"{diag[True][0]:.3e} plain {diag[True][1]:.3e}")
         for normalize in (True, False):
             got = logmel_cuda.log_mel(wave, normalize)
             want = log_mel_reference(wave, normalize)
@@ -160,11 +181,17 @@ def phase_kernel(seed: int) -> dict:
                 failures.append((batch, normalize, err))
         stft_err = (stft_log_mel(wave, window_n, fb) - log_mel_reference(wave, True)).abs().max().item()
         ms = cuda_ms(lambda: logmel_cuda.log_mel(wave, True))
+        raw_ms = cuda_ms(lambda: logmel_cuda.log_mel(wave, False))
         plain = cuda_ms(lambda: log_mel_reference(wave, True))
         stft = cuda_ms(lambda: stft_log_mel(wave, window_n, fb))
         bound, bound_by = logmel_bound_ms(batch)
         rows[batch] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
-        log("kernel", f"logmel B={batch} normalize=True: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+        phases = [logmel_cuda.phase_times(wave, True) for _ in range(3)][-1]  # warm
+        log("kernel", f"logmel B={batch} normalize=True phases, mean / max over blocks in us: " + ", ".join(
+            f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in phases.items() if k != "launch")
+            + f"; first start to last end {phases['launch']:.2f} us (timestamps on)")
+        log("kernel", f"logmel B={batch} normalize=True: kernel {ms:.4f} ms ({100 * bound / ms:.1f} % of bound; "
+                      f"normalize=False {raw_ms:.4f} ms) | plain {plain:.4f} ms | "
                       f"bound {bound:.4f} ms ({bound_by}) | torch.stft log-mel {stft:.4f} ms "
                       f"(partial yardstick, max abs err {stft_err:.2e}) | {torch.cuda.get_device_name(0)}")
     if failures:

@@ -35,7 +35,9 @@ def _waves(batch, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 3, 32, 128])
+# 37 and 133 fit no multiple of the tiling; 133 clips = 532 blocks leave a
+# partial last wave on 132 SMs
+@pytest.mark.parametrize("batch", [1, 3, 32, 37, 128, 133])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_logmel_kernel_matches_plain_version(cuda_device, batch, normalize):
     wave = _waves(batch, cuda_device, seed=batch)
@@ -46,6 +48,49 @@ def test_logmel_kernel_matches_plain_version(cuda_device, batch, normalize):
     assert logmel_cuda.launch_count == before + 1
     assert got.shape == (batch, 80, 126) and got.dtype == torch.float32
     torch.testing.assert_close(got, log_mel_reference(wave, normalize), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 37])
+def test_logmel_kernel_standardizes_each_clip(cuda_device, batch):
+    wave = _waves(batch, cuda_device, seed=7)
+    wave[1] *= 50.0  # clips of very different loudness
+    out = logmel_cuda.log_mel(wave, True).double()
+    flat = out.reshape(batch, -1)
+    torch.testing.assert_close(flat.mean(1), torch.zeros_like(flat[:, 0]), rtol=0, atol=1e-5)
+    torch.testing.assert_close(flat.std(1), torch.ones_like(flat[:, 0]), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_logmel_kernel_is_repeatable_and_leaves_its_scratch_clean(cuda_device):
+    wave = _waves(37, cuda_device, seed=4)
+    first = logmel_cuda.log_mel(wave, True)
+    again = logmel_cuda.log_mel(wave, True)
+    torch.testing.assert_close(first, again, rtol=0, atol=0)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    _partials, tickets = logmel_cuda._scratch(wave.device, stream)
+    assert int(tickets.abs().sum()) == 0  # every clip's last block reset its ticket
+
+
+@pytest.mark.cuda
+def test_logmel_kernel_launch_config(cuda_device):
+    cfg = logmel_cuda.launch_config(32, cuda_device)
+    assert (cfg["grid_x"], cfg["grid_y"]) == (logmel_cuda.KERNEL_TILES, 32)
+    assert cfg["local_bytes"] == 0  # no spills
+    assert cfg["blocks_per_sm"] >= 1 and cfg["registers"] <= 255 and cfg["clusters_of_4"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+def test_logmel_kernel_phase_times(cuda_device, normalize):
+    wave = _waves(5, cuda_device, seed=6)
+    before = logmel_cuda.launch_count
+    phases = logmel_cuda.phase_times(wave, normalize)
+    assert logmel_cuda.launch_count == before + 1
+    assert ("standardize" in phases) == normalize
+    for name, (mean, largest) in ((k, v) for k, v in phases.items() if k != "launch"):
+        assert 0 <= mean <= largest < phases["launch"], name
+    assert phases["dft"][0] > phases["mel"][0]  # the DFT is the bulk of the work
 
 
 @pytest.mark.cuda

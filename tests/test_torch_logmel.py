@@ -21,6 +21,7 @@ from multimodal_lipread_tpu.ops.logmel_pallas import log_mel_pallas
 from multimodal_lipread_torch.ops import _build
 from multimodal_lipread_torch.ops import logmel as plm
 from multimodal_lipread_torch.ops import logmel_cuda
+from multimodal_lipread_torch.tools import logmel_tf32_emulation as tf32
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 TOL = 1e-4
@@ -101,6 +102,7 @@ def test_log_mel_rejects_bad_shapes(shape):
 def test_kernel_basis_layout():
     basis, full = logmel_cuda.kernel_basis(), plm.dft_basis()
     cols = logmel_cuda.KERNEL_FREQ_COLS
+    assert cols == 224  # 201 frequencies padded to the kernel's 7 warps x 32 columns
     assert basis.shape == (plm.N_FFT, 2 * cols) and basis.dtype == np.float32
     np.testing.assert_array_equal(basis[:, : plm.N_FREQS], full[:, : plm.N_FREQS])
     np.testing.assert_array_equal(basis[:, cols : cols + plm.N_FREQS], full[:, plm.FREQ_PAD : plm.FREQ_PAD + plm.N_FREQS])
@@ -122,6 +124,42 @@ def test_kernel_basis_reproduces_the_dft():
 
     got = logmel(logmel_cuda.kernel_basis(), logmel_cuda.KERNEL_FREQ_COLS)
     torch.testing.assert_close(got, logmel(plm.dft_basis(), plm.FREQ_PAD), rtol=1e-12, atol=1e-12)
+
+
+def test_kernel_mel_table_rebuilds_the_filterbank():
+    first, bands = logmel_cuda.kernel_mel_table()
+    band = logmel_cuda.KERNEL_MEL_BAND
+    assert first.shape == (plm.N_MELS,) and first.dtype == np.int32
+    assert bands.shape == (plm.N_MELS, band) and bands.dtype == np.float32
+    assert first.min() >= 0 and first.max() + band <= plm.N_FREQS  # bands stay inside the spectrum
+    fb = np.zeros((plm.N_FREQS, plm.N_MELS), np.float32)
+    for m in range(plm.N_MELS):
+        fb[first[m] : first[m] + band, m] = bands[m]
+    np.testing.assert_array_equal(fb, plm.mel_filterbank())
+    assert np.count_nonzero(bands) == np.count_nonzero(plm.mel_filterbank())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_float64_through_kernel_tables_matches_reference_and_xla(waves, normalize):
+    # the function the kernel computes, summed exactly through its own tables
+    # (224-column basis, mel bands), against both fp32 versions at 1e-4
+    got = logmel_cuda.log_mel_float64(torch.from_numpy(waves), normalize)
+    assert got.dtype == torch.float64 and got.shape == (3, plm.N_MELS, plm.NUM_FRAMES)
+    ref = plm.log_mel_reference(torch.from_numpy(waves), normalize).numpy()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    xla = np.asarray(jlm.log_mel_xla(waves, normalize=normalize))
+    np.testing.assert_allclose(got.numpy(), xla, rtol=TOL, atol=TOL)
+
+
+def test_tf32_emulation_roundings():
+    x = (np.random.default_rng(5).standard_normal(4096) * 1000).astype(np.float32)
+    hi = tf32.to_tf32(x)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()  # 10 mantissa bits left
+    np.testing.assert_array_less(np.abs(x - hi), np.abs(x) * 2.0**-11 * 1.0001)  # to nearest
+    v = x.astype(np.float64) * (1 + 1e-9)
+    rz, rn = tf32.to_f32(v, toward_zero=True), tf32.to_f32(v)
+    assert (np.abs(rz.astype(np.float64)) <= np.abs(v)).all()
+    assert (np.abs(rz - rn) <= np.spacing(np.abs(rn))).all()
 
 
 def test_nvcc_command_targets_hopper_without_torch_headers():
