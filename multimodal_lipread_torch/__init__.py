@@ -6,9 +6,10 @@ points run on a CUDA card unless the caller passes ``device="cpu"``; its
 one hand-written kernel, the log-mel frontend (``ops/logmel_cuda.py`` +
 ``csrc/logmel.cu``), is built with plain ``nvcc`` at first use.
 
-Ported so far: the audio ``vgg_lstm`` serving path (WAV clips → waveform →
-log-mel on the device → VGG16-BN → 2-layer BiLSTM → classifier). See
-ROADMAP.md for what remains.
+Ported so far: the audio ``vgg_lstm`` pipeline, trained
+(``pipelines/audio.py``, ``train/trainer.py``) and served (``serving.py``):
+WAV clips → threaded native decode → log-mel on the device → VGG16-BN →
+2-layer BiLSTM → classifier. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

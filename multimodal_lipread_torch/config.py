@@ -79,6 +79,15 @@ class Config:
             node = node.setdefault(k, {})
         node[keys[-1]] = value
 
+    def get_all(self) -> Dict[str, Any]:
+        return self.config
+
+    def save(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.config, f, sort_keys=False)
+
 
 def load_config(config_path: str) -> Config:
     """Load a YAML configuration file."""

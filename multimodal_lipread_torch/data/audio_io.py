@@ -4,8 +4,11 @@ package's ``data/audio_io.py``).
 Decodes PCM WAV with the standard library's ``wave`` module into a float32
 waveform in int16 sample range, padded or truncated to 20 000 samples
 (1.25 s at 16 kHz). All spectral work then runs on the device
-(``ops/logmel_cuda.py``). Compressed formats, resampling (ffmpeg) and the
-threaded native decoder (``native/``) are not ported yet (ROADMAP.md).
+(``ops/logmel_cuda.py``). Batches of PCM16 WAVs go through the threaded
+native decoder first (``data/native_io.py``, via
+``pipelines.common.decode_waveforms``); this is the per-file path for what it
+does not take. Compressed formats and resampling (ffmpeg) are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """GLips directory scanning (counterpart of the JAX package's
-``data/glips.py``; only what serving needs for class names).
+``data/glips.py``; the lip-region and cross-modality parts wait for the
+video slice).
 
 Layout: ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.{m4a,wav,flac}``;
 the sequence id is the ``NNNN-NNNN`` part of the file name, and the class
@@ -32,6 +33,10 @@ class ClipEntry:
     sequence_id: str
     path: str
 
+    @property
+    def key(self) -> Tuple[str, str, str]:
+        return (self.word, self.sequence_id, self.split)
+
 
 @dataclass
 class GlipsIndex:
@@ -41,6 +46,13 @@ class GlipsIndex:
     classes: List[str] = field(default_factory=list)
     entries: List[ClipEntry] = field(default_factory=list)
 
+    @property
+    def class_to_idx(self) -> Dict[str, int]:
+        return {w: i for i, w in enumerate(self.classes)}
+
+    def by_split(self, split: str) -> List[ClipEntry]:
+        return [e for e in self.entries if e.split == split]
+
 
 def lipread_files_dir(root: str) -> str:
     """``<root>/lipread_files`` if present, else ``root`` itself."""
@@ -48,21 +60,30 @@ def lipread_files_dir(root: str) -> str:
     return cand if os.path.isdir(cand) else root
 
 
-def scan_glips(root: str, exts: Sequence[str] = AUDIO_EXTS) -> GlipsIndex:
+def scan_glips(
+    root: str,
+    exts: Sequence[str] = AUDIO_EXTS,
+    splits: Sequence[str] = SPLITS,
+    words: Optional[Sequence[str]] = None,
+) -> GlipsIndex:
     """Scan the GLips tree for clips with the given extensions.
 
-    Deterministic: the class list is the sorted set of word directories and
-    entries are sorted by sequence id. A clip present in several formats
-    gives one entry, the earliest extension in ``exts`` winning.
+    Deterministic: the class list is the sorted set of word directories
+    (or of ``words``, when given) and entries are sorted by sequence id
+    within each word and split. A clip present in several formats gives
+    one entry, the earliest extension in ``exts`` winning.
     """
     base = lipread_files_dir(root)
     if not os.path.isdir(base):
         raise FileNotFoundError(f"GLips root not found: {root}")
-    found = sorted(d for d in os.listdir(base) if os.path.isdir(os.path.join(base, d)))
+    if words is None:
+        found = sorted(d for d in os.listdir(base) if os.path.isdir(os.path.join(base, d)))
+    else:
+        found = sorted(words)
     index = GlipsIndex(root=root, classes=found)
     exts = tuple(e.lower() for e in exts)
     for word in found:
-        for split in SPLITS:
+        for split in splits:
             d = os.path.join(base, word, split)
             if not os.path.isdir(d):
                 continue

@@ -2,6 +2,12 @@
 
 Ported so far: ``vgg_lstm``. Input contract: (B, 80, input_size) normalized
 log-mel; internally NCHW (B, 1, 80, T).
+
+``dtype`` is the compute dtype, as a Flax module's: parameters and
+BatchNorm statistics stay float32 for every ``dtype``, and with
+``torch.bfloat16`` the convolutions, the LSTM and the linears run in bf16
+(each layer casts its weights), the BatchNorm statistics in float32, and
+the logits come out in bf16.
 """
 
 from __future__ import annotations
@@ -36,7 +42,6 @@ class VGGWithLSTMClassifier(nn.Module):
         self.vgg = VGG(version)
         self.lstm = BiLSTM(512, lstm_hidden, lstm_layers)
         self.classifier = ClassifierHead(2 * lstm_hidden, 128, num_classes, dropout_rate, use_batchnorm)
-        self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fmap = self.vgg(x.to(self.dtype)[:, None])  # (B, 512, H', W')

@@ -1,9 +1,10 @@
 """VGG-BN backbones (11/13/16/19): torchvision's 'features' topology
 (counterpart of the JAX package's ``models/backbones/vgg.py``).
 
-Conv 3x3 → BatchNorm (eps 1e-5) → ReLU, MaxPool 2 at each "M". Input NCHW
-→ the final feature map NCHW (512 channels). Submodules are named
-``conv{k}``/``bn{k}`` as in the JAX module.
+Conv 3x3 → BatchNorm (Flax's: momentum 0.9, eps 1e-5, biased running
+variance) → ReLU, MaxPool 2 at each "M". Input NCHW → the final feature map
+NCHW (512 channels), in the input's dtype over float32 weights. Submodules
+are named ``conv{k}``/``bn{k}`` as in the JAX module.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimodal_lipread_torch.nn.common import BatchNorm, conv2d
 
 _CFGS = {
     11: (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -35,7 +38,7 @@ class VGG(nn.Module):
             if v == "M":
                 continue
             self.add_module(f"conv{k}", nn.Conv2d(c, v, 3, padding=1))
-            self.add_module(f"bn{k}", nn.BatchNorm2d(v, eps=1e-5, momentum=0.1))
+            self.add_module(f"bn{k}", BatchNorm(v))
             c = v
             k += 1
 
@@ -45,6 +48,6 @@ class VGG(nn.Module):
             if v == "M":
                 x = F.max_pool2d(x, 2, 2)
             else:
-                x = F.relu(getattr(self, f"bn{k}")(getattr(self, f"conv{k}")(x)))
+                x = F.relu(getattr(self, f"bn{k}")(conv2d(getattr(self, f"conv{k}"), x)))
                 k += 1
         return x

@@ -1,2 +1,9 @@
-from multimodal_lipread_torch.nn.common import MLP, ClassifierHead, adaptive_avg_pool2d  # noqa: F401
+from multimodal_lipread_torch.nn.common import (  # noqa: F401
+    MLP,
+    BatchNorm,
+    ClassifierHead,
+    Dropout,
+    adaptive_avg_pool2d,
+    flax_init_,
+)
 from multimodal_lipread_torch.nn.recurrent import BiLSTM  # noqa: F401

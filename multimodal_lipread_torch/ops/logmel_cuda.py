@@ -154,7 +154,12 @@ def launch_config(batch: int, device: torch.device | str = "cuda") -> dict:
 
 
 def log_mel(wave: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-    """(B, 20000) waveforms → (B, 80, 126) float32 log-mel spectrograms."""
+    """(B, 20000) waveforms → (B, 80, 126) float32 log-mel spectrograms.
+
+    Forward only, as in the JAX package: the kernel has no backward, so a
+    ``wave`` that requires a gradient while autograd is on is refused (on
+    the CPU too) rather than answered with a tensor that silently has
+    none."""
     return _log_mel(wave, normalize)
 
 
@@ -185,6 +190,9 @@ def _log_mel(wave: torch.Tensor, normalize: bool, stamps: torch.Tensor | None = 
     global launch_count
     if wave.ndim != 2 or wave.shape[1] != NUM_SAMPLES:
         raise ValueError(f"log_mel expects (B, {NUM_SAMPLES}) waveforms, got {tuple(wave.shape)}")
+    if wave.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the log-mel kernel has no backward: pass a waveform that does not require a gradient "
+                         "(wave.detach()), or run under torch.no_grad()")
     if wave.device.type == "cpu":
         return log_mel_reference(wave, normalize)
     if wave.device.type != "cuda":

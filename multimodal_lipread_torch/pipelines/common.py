@@ -1,17 +1,26 @@
-"""Shared pipeline plumbing used by serving (counterpart of part of the JAX
-package's ``pipelines/common.py``): host decode, log-mel features on the
-device, and the model dtype knob. The dataset loaders and the trainer
-wiring wait for the training slice (ROADMAP.md)."""
+"""Shared pipeline plumbing: config → arrays → Trainer (counterpart of the
+JAX package's ``pipelines/common.py``, audio part).
+
+Features are computed once, up front, on the device: every split's clips
+are decoded on the host (the threaded native decoder) and featurized by the
+log-mel kernel in chunks of 256 clips. The video loaders and pretrained
+grafting wait for later slices (ROADMAP.md).
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import argparse
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from multimodal_lipread_torch.config import Config, coerce_yaml_scalar, load_config
 from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES, load_waveform
+from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, scan_glips
 from multimodal_lipread_torch.ops.logmel_cuda import log_mel
+from multimodal_lipread_torch.train.trainer import ArrayDataset
 
 MEL_BINS = 80
 
@@ -20,7 +29,9 @@ def compute_logmel_features(
     waves: np.ndarray, input_size: int = 117, chunk: int = 256, device: str = "cuda"
 ) -> np.ndarray:
     """(N, 20000) waveforms → (N, 80, input_size) normalized log-mel,
-    computed on ``device`` in chunks of ``chunk`` clips.
+    computed on ``device`` in chunks of ``chunk`` clips (the last one
+    ragged: the kernel takes any batch, and each clip is normalized on its
+    own).
 
     Normalization runs over the full (80, 126) spectrogram before the time
     slice.
@@ -34,12 +45,130 @@ def compute_logmel_features(
 
 
 def decode_waveforms(paths: Sequence[str]) -> np.ndarray:
-    """Host decode of WAV files to fixed 20,000-sample float32 waveforms."""
-    if not paths:
-        return np.zeros((0, TARGET_SAMPLES), np.float32)
-    return np.stack([load_waveform(p) for p in paths])
+    """Host decode of audio files to fixed 20,000-sample float32 waveforms.
+
+    WAV files go through the threaded native decoder in one pass
+    (``data/native_io.py``, which raises if it cannot be built); a file it
+    does not take (not PCM16 at 16 kHz) and any other format go to the
+    Python decoder, per file.
+    """
+    out = np.zeros((len(paths), TARGET_SAMPLES), np.float32)
+    wav = [i for i, p in enumerate(paths) if p.lower().endswith(".wav")]
+    python = [i for i, p in enumerate(paths) if not p.lower().endswith(".wav")]
+    if wav:
+        from multimodal_lipread_torch.data.native_io import load_wav_batch
+
+        waves, failed = load_wav_batch([paths[i] for i in wav])
+        out[wav] = waves
+        if failed >= 0:
+            # The decoder names only the first file it refused and leaves every
+            # refused file's row zero. Decode the zero rows in Python: a silent
+            # PCM16 file among them decodes to the same zeros there.
+            python += [i for i, row in zip(wav, waves) if not row.any()]
+    for i in python:
+        out[i] = load_waveform(paths[i])
+    return out
+
+
+def load_audio_datasets(
+    root_dir: str,
+    input_size: int = 117,
+    splits: Sequence[str] = SPLITS,
+    words: Optional[Sequence[str]] = None,
+    device: str = "cuda",
+) -> Tuple[Dict[str, ArrayDataset], GlipsIndex]:
+    """Scan GLips, decode and featurize every audio clip on ``device``;
+    returns the per-split datasets and the index."""
+    index = scan_glips(root_dir, exts=AUDIO_EXTS, words=words)
+    class_to_idx = index.class_to_idx
+    datasets: Dict[str, ArrayDataset] = {}
+    for split in splits:
+        entries = index.by_split(split)
+        if not entries:
+            raise RuntimeError(
+                f"No audio clips found for split '{split}' under {root_dir} — "
+                f"check the GLips tree layout"
+            )
+        waves = decode_waveforms([e.path for e in entries])
+        mels = compute_logmel_features(waves, input_size=input_size, device=device)
+        labels = np.asarray([class_to_idx[e.word] for e in entries], np.int32)
+        datasets[split] = ArrayDataset(inputs=(mels,), labels=labels)
+    return datasets, index
+
+
+def parse_cli(default_config: Optional[str] = None, argv: Optional[Sequence[str]] = None) -> Config:
+    """``--config path.yaml [--set a.b=c ...] [--resume] [--device cuda|cpu]``
+    → Config with the overrides applied; ``_cli.resume`` and ``_cli.device``
+    carry the last two."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default=default_config, required=default_config is None)
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.config)
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        try:
+            import yaml
+
+            value = coerce_yaml_scalar(yaml.safe_load(value))
+        except Exception:
+            pass
+        cfg.set(key, value)
+    cfg.set("_cli.resume", bool(args.resume))
+    cfg.set("_cli.device", args.device)
+    return cfg
+
+
+def default_dirs(cfg: Config, pipeline: str) -> Tuple[str, str]:
+    """(metrics_dir, checkpoints_dir) for a pipeline, reference-style layout."""
+    base = cfg.get("output.base_dir", pipeline)
+    metrics = cfg.get("output.metrics_dir", os.path.join(base, "metrics"))
+    ckpts = cfg.get("output.checkpoints_dir", os.path.join(base, "models_trained"))
+    return metrics, ckpts
 
 
 def model_dtype(cfg) -> torch.dtype:
-    """``model.dtype``: 'bfloat16' or float32 (the default)."""
+    """``model.dtype``: 'bfloat16' or float32 (the default). The compute
+    dtype only: parameters and the loss stay float32."""
     return torch.bfloat16 if str(cfg.get("model.dtype", "float32")) == "bfloat16" else torch.float32
+
+
+def trainer_extras(cfg: Config) -> dict:
+    """The ``training.*`` TrainerConfig knobs common to every pipeline, as
+    the JAX package reads them. Unported ones are passed on, so that the
+    trainer raises for them when they are set; ``dropout_rng_impl`` names a
+    JAX PRNG and has no counterpart here (torch draws dropout from Philox)."""
+    rng_impl = cfg.get("training.dropout_rng_impl", "rbg")
+    if rng_impl != "rbg":
+        raise NotImplementedError(
+            f"training.dropout_rng_impl={rng_impl!r} selects a JAX PRNG; the PyTorch port draws "
+            "dropout from a torch.Generator (ROADMAP.md, Queue 3 #6)"
+        )
+    return {
+        "warmup_epochs": cfg.get("training.warmup_epochs", cfg.get("train.warmup_epochs", 0.0)),
+        "device_resident": cfg.get("training.device_resident", False),
+        "steps_per_dispatch": cfg.get("training.steps_per_dispatch", 1),
+        "handle_preemption": cfg.get("training.handle_preemption", False),
+        "host_prefetch": cfg.get("training.host_prefetch", 2),
+        "remat": cfg.get("training.remat", False),
+        "half_precision": cfg.get("training.half_precision", False),
+        "checkpoint_backend": cfg.get("training.checkpoint_backend", "msgpack"),
+        "profile_dir": cfg.get("training.profile_dir", None),
+        "mixup_alpha": cfg.get(
+            "training.mixup_alpha", cfg.get("augmentation.mixup_alpha", 0.0)
+        ),
+    }
+
+
+def maybe_plot(cfg: Config, metrics_dir: str) -> None:
+    """Write loss/accuracy PNGs after training; disable with
+    ``output.plots: false``. Plotting never fails a run."""
+    if cfg.get("output.plots", True):
+        try:
+            from multimodal_lipread_torch.utils.visualize import plot_logs
+
+            plot_logs(metrics_dir)
+        except Exception as e:
+            print(f"plotting skipped: {e}")

@@ -4,8 +4,9 @@ package's ``serving.py``).
 - ``Predictor``: a trained model from a checkpoint, in eval mode on one
   device; serves any number of inputs in fixed-size batches, padding the
   last one.
-- ``predict_audio_clips``: WAV files → host decode → log-mel on the device
-  (the CUDA kernel of ``ops/logmel_cuda.py``) → classifier.
+- ``predict_audio_clips``: WAV files → host decode (the threaded native
+  decoder) → log-mel on the device (the CUDA kernel of
+  ``ops/logmel_cuda.py``) → classifier.
 - a CLI: ``python -m multimodal_lipread_torch.serving --pipeline audio
   --config <yaml> --checkpoint <path> <clips...>`` → JSON predictions.
 
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_module_state
+from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -39,7 +41,9 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Predictor:
-    """Fixed-batch classifier around a model in eval mode on ``device``."""
+    """Fixed-batch classifier around a model in eval mode on ``device``,
+    run at its compute dtype's precision (``utils/precision.py``: no TF32
+    for a float32 model)."""
 
     model: nn.Module
     batch_size: int = 32
@@ -60,7 +64,7 @@ class Predictor:
         """Any-N inputs → (N, num_classes) float32 logits via fixed-size batches."""
         n = inputs[0].shape[0]
         out: List[np.ndarray] = []
-        with torch.inference_mode():
+        with torch.inference_mode(), model_precision(compute_dtype(self.model)):
             for start in range(0, n, self.batch_size):
                 chunk = tuple(a[start : start + self.batch_size] for a in inputs)
                 k = chunk[0].shape[0]

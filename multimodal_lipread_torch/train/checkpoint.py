@@ -1,10 +1,19 @@
 """Checkpoints (counterpart of the JAX package's ``train/checkpoint.py``).
 
-Same layout as the JAX package's: ``{epoch, state: {params, batch_stats},
-val_acc, scheduler_lr}``. Here ``params`` holds a module's parameters and
-``batch_stats`` its buffers (BatchNorm running statistics), each a flat
-``{state_dict name: tensor}`` mapping. Written with ``torch.save`` and read
-with ``torch.load(weights_only=True)``, so loading runs no pickled code.
+Same layout as the JAX package's. A trainer writes the whole tree:
+
+    {epoch, state: {params, batch_stats, opt_state, step}, val_acc,
+     scheduler_lr, scheduler_best, scheduler_has_best, scheduler_bad_epochs,
+     best_val_acc, dropout_rng}
+
+``params`` holds a module's parameters and ``batch_stats`` its buffers
+(BatchNorm running statistics), each a flat ``{state_dict name: tensor}``
+mapping; ``opt_state`` is the optimizer's ``state_dict()`` (Adam's moments
+and step counts, and the LR in its ``param_groups``); ``dropout_rng`` the
+dropout generator's state. Serving reads only ``state.params`` and
+``state.batch_stats``, so a trained checkpoint serves as it is. Written with
+``torch.save`` and read with ``torch.load(weights_only=True)``, so loading
+runs no pickled code.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ The inverse of the JAX package's ``utils/torch_import.py``: it takes
 - Conv ``kernel`` (kh, kw, I, O) → ``weight`` (O, I, kh, kw);
 - Dense ``kernel`` (I, O) → ``weight`` (O, I);
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` → ``weight``/``bias`` +
-  ``running_mean``/``running_var`` (``num_batches_tracked`` 0);
+  ``running_mean``/``running_var``;
 - LSTM ``l{n}_{fwd,bwd}/{w_ih, w_hh, b_ih, b_hh}`` (D, 4H) →
   ``{weight_ih, weight_hh, bias_ih, bias_hh}_l{n}[_reverse]`` (4H, D).
 
@@ -42,7 +42,6 @@ def _walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str, out: Dict[str
         out[prefix + "bias"] = _t(p["bias"])
         out[prefix + "running_mean"] = _t(s["mean"])
         out[prefix + "running_var"] = _t(s["var"])
-        out[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
         return
     lstm = {k: _LSTM_KEY.fullmatch(k) for k in p}
     if lstm and all(lstm.values()):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the training path there: train steps on the card against the CPU, and the
+native WAV decoder's build.
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -16,6 +18,7 @@ from multimodal_lipread_torch.models.audio import VGGWithLSTMClassifier
 from multimodal_lipread_torch.models.frontend import WaveToLogMel
 from multimodal_lipread_torch.ops import logmel_cuda
 from multimodal_lipread_torch.ops.logmel import NUM_SAMPLES, log_mel_reference
+from multimodal_lipread_torch.utils.precision import model_precision
 
 TOL = 1e-4  # the JAX package's Pallas-vs-XLA bound (tests/test_logmel.py)
 
@@ -24,9 +27,7 @@ TOL = 1e-4  # the JAX package's Pallas-vs-XLA bound (tests/test_logmel.py)
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    return torch.device("cuda")  # TF32 left at the process default: the path sets its own precision
 
 
 def _waves(batch, device, seed=0):
@@ -100,6 +101,10 @@ def test_logmel_kernel_rejects_what_it_does_not_take(cuda_device):
         logmel_cuda.log_mel(wave.double())
     with pytest.raises(ValueError):
         logmel_cuda.log_mel(torch.zeros((NUM_SAMPLES, 2), device=cuda_device).t())
+    before = logmel_cuda.launch_count
+    with pytest.raises(ValueError, match="no backward"):  # the kernel takes no gradient
+        logmel_cuda.log_mel(wave.clone().requires_grad_())
+    assert logmel_cuda.launch_count == before
 
 
 @pytest.mark.cuda
@@ -116,8 +121,92 @@ def test_wave_to_logmel_runs_the_kernel(cuda_device):
     net = VGGWithLSTMClassifier(4, version=11, lstm_hidden=16).to(cuda_device).eval()
     wave = _waves(4, cuda_device, seed=2)
     before = logmel_cuda.launch_count
-    with torch.inference_mode():
+    with torch.inference_mode(), model_precision(torch.float32):
         got = WaveToLogMel(net, 117)(wave)
         want = net(log_mel_reference(wave, True)[:, :80, :117])
     assert logmel_cuda.launch_count == before + 1
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_logmel_kernel_at_the_featurization_batches(cuda_device):
+    # training featurizes each split in chunks of 256 clips and a ragged rest
+    wave = _waves(272, cuda_device, seed=9)
+    before = logmel_cuda.launch_count
+    full = logmel_cuda.log_mel(wave[:256], True)
+    rest = logmel_cuda.log_mel(wave[256:], True)
+    torch.cuda.synchronize()
+    assert logmel_cuda.launch_count == before + 2
+    torch.testing.assert_close(full, log_mel_reference(wave[:256], True), rtol=0, atol=TOL)
+    torch.testing.assert_close(rest, log_mel_reference(wave[256:], True), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    # lr 3e-5: Adam's first steps move nearly every weight by ±lr, so two
+    # correct float32 runs part in proportion to lr (tests/test_torch_trainer.py)
+    rng = np.random.default_rng(3)
+    ds = ArrayDataset((rng.standard_normal((20, 80, 32)).astype(np.float32),), rng.integers(0, 4, 20).astype(np.int32))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=8, learning_rate=3e-5, seed=0,
+                            metrics_dir=str(tmp_path / device / "m"), checkpoints_dir=str(tmp_path / device / "c"))
+        trainer = Trainer(VGGWithLSTMClassifier(4, version=11, lstm_hidden=16, dropout_rate=0.0), cfg, device=device)
+        trainer.init_state()
+        out = [trainer.train_step(*batch).tolist() for batch in trainer.batches(ds, True, np.random.default_rng(0))]
+        losses[device] = np.asarray([a[0] / a[3] for a in out])
+        assert all(p.device.type == device for p in trainer.model.parameters())
+    assert len(losses["cuda"]) == 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_the_path_sets_float32_precision_itself(cuda_device, tmp_path):
+    # With TF32 allowed in the process (cuDNN's default), a float32 model's
+    # forward and backward in Predictor and Trainer run without it, and the
+    # process's setting is back afterwards.
+    from multimodal_lipread_torch.serving import Predictor
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def flags():
+        return cudnn.allow_tf32, matmul.allow_tf32
+
+    saved = flags()
+    try:
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        net = VGGWithLSTMClassifier(4, version=11, lstm_hidden=16, dropout_rate=0.0)
+        seen = []
+        net.register_forward_hook(lambda *_: seen.append(("forward", flags())))
+        net.register_full_backward_hook(lambda *_: seen.append(("backward", flags())))
+        Predictor(net, batch_size=4, device="cuda").predict_logits(np.zeros((4, 80, 32), np.float32))
+        assert flags() == (True, True)
+        cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=4, seed=0,
+                            metrics_dir=str(tmp_path / "m"), checkpoints_dir=str(tmp_path / "c"))
+        trainer = Trainer(net, cfg, device="cuda")
+        trainer.init_state()
+        inputs = (torch.zeros((4, 80, 32), device="cuda"),)
+        trainer.train_step(inputs, torch.zeros(4, dtype=torch.long, device="cuda"), torch.ones(4, device="cuda"))
+        assert flags() == (True, True)
+        assert [kind for kind, _ in seen] == ["forward", "forward", "backward"]
+        assert all(f == (False, False) for _, f in seen), seen
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_native_decoder_builds_and_decodes(cuda_device, tmp_path):
+    from multimodal_lipread_torch.data import audio_io, native_io
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, n in enumerate((100, 20000, 25000)):
+        paths.append(str(tmp_path / f"x{i}.wav"))
+        audio_io.write_wav(paths[-1], rng.integers(-30000, 30000, n).astype(np.float32))
+    assert native_io.get_lib() is not None and native_io.library_path().is_file()
+    want = np.stack([audio_io.load_waveform(p) for p in paths])
+    np.testing.assert_array_equal(decode_waveforms(paths), want)

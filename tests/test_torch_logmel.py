@@ -99,6 +99,15 @@ def test_log_mel_rejects_bad_shapes(shape):
         logmel_cuda.log_mel(torch.zeros(shape))
 
 
+def test_log_mel_refuses_a_waveform_that_requires_a_gradient(waves):
+    # the kernel has no backward, so its plain version on the CPU refuses too
+    wave = torch.from_numpy(waves).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        logmel_cuda.log_mel(wave)
+    with torch.no_grad():  # no gradient is asked for, so none is lost
+        torch.testing.assert_close(logmel_cuda.log_mel(wave), plm.log_mel_reference(wave.detach()), rtol=0, atol=0)
+
+
 def test_kernel_basis_layout():
     basis, full = logmel_cuda.kernel_basis(), plm.dft_basis()
     cols = logmel_cuda.KERNEL_FREQ_COLS

@@ -56,3 +56,9 @@ def test_port_never_uses_torch_cpp_extension():
     for path in _port_files():
         with open(path) as f:
             assert "cpp_extension" not in f.read(), path
+
+
+def test_plotting_is_imported_only_inside_functions():
+    # the card machine has no matplotlib: training must import without it
+    for path in _port_files():
+        assert not {"matplotlib", "pandas"} & {n.split(".")[0] for n in _imports(path, top_level_only=True)}, path
