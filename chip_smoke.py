@@ -49,9 +49,30 @@ its lines and any failure ending the run with a non-zero exit:
    step, one epoch at ``model.dtype: bfloat16`` (parameters stay float32,
    losses finite), the first 3 training steps on the card against the
    same 3 steps of the port on the CPU at lr 1e-5, and the card's first 3
-   steps at the trained lr 5e-4 against a float64 run of them on the card.
+   steps at the trained lr 5e-4 against a float64 run of them on the card;
+6. video-train: the port's synthetic lip corpus from ``--seed`` (4 words,
+   32 clips per split, kept uint8: an epoch is 8 steps of 16) and the
+   ``.npy`` load time of it; ``pipelines.video.main`` trains
+   ``configs/visual_config.yaml``'s ``resnet_trans`` at its widths
+   (ResNet18 over 29 frames of 44 x 44 x 3, a 256-d projection,
+   sinusoidal positions, a 2-layer 4-head post-LN Transformer with FF 1024,
+   dropout 0.2, batch 16, lr 5e-5, wd 1e-5, ReduceLROnPlateau on the val
+   accuracy) for 3 epochs in float32 from a ``Config.from_dict``: every
+   loss finite, the epoch-3 train loss below epoch 1's, the final test on
+   the reloaded best checkpoint, which serves with the same accuracy. Then
+   the train step's time at B=16 by CUDA events, training clips/s per
+   epoch, the card's idle share over an epoch, host batching + H2D per
+   step, the first 3 steps on the card against the CPU at lr 1e-5, and the
+   card's first 3 float32 steps at the trained lr 5e-5 against a float64
+   run of them on the card;
+7. video-serve: the best checkpoint in a resident ``Predictor`` and behind
+   ``serving.predict_clips(pipeline="video")``, requests of 16 lip-region
+   ``.npy`` files: each request's time, clips/s, a breakdown of one
+   request (host ``.npy`` load, uint8 H2D, forward, D2H, card idle), and
+   the card's logits against the same weights on the CPU, to 1e-3.
 
-The line before the last is ``{"kernels": [...]}``, one entry per kernel;
+The video phases launch no hand-written kernel (the log-mel is an audio
+kernel). The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -106,6 +127,16 @@ STEP_ITERS = 20
 PARITY_STEPS, PARITY_LR, PARITY_RTOL = 3, 1e-5, 1e-3
 DRIFT_SEEDS_MAX = np.array([2.652e-6, 2.117e-3, 3.135e-2])
 DRIFT_RTOL = 2 * DRIFT_SEEDS_MAX
+# [video-train] / [video-serve]: configs/visual_config.yaml's resnet_trans
+# on 4 words x 32 lip clips per split (an epoch is 8 steps of 16)
+VIDEO_CLIPS_PER_SPLIT = 32
+VIDEO_BATCH, VIDEO_EPOCHS, VIDEO_LR, VIDEO_WD = 16, 3, 5e-5, 1e-5
+# the card's first 3 float32 steps at lr 5e-5 against float64 on the card:
+# per step, twice the largest distance that `train_drift --pipeline video
+# --model resnet_trans --lrs 5e-5 --no-cpu --seeds 0 0 1 2 3 4 5 6 7` read
+# on an H100 (PERF.md)
+VIDEO_DRIFT_SEEDS_MAX = np.array([1.851e-7, 3.668e-5, 1.906e-4])
+VIDEO_DRIFT_RTOL = 2 * VIDEO_DRIFT_SEEDS_MAX
 
 
 def log(phase: str, msg: str) -> None:
@@ -414,9 +445,10 @@ def phase_serve(seed: int, device_info: dict) -> int:
 
 
 def device_busy_s(fn) -> tuple:
-    """(busy s, wall s) of the card while ``fn`` runs: the union of the
-    device activities ``torch.profiler`` records, and the profiled wall
-    time (which the profiler's own host work lengthens)."""
+    """(busy s, wall s, {name: device s}) of the card while ``fn`` runs:
+    the union of the device activities ``torch.profiler`` records, the
+    profiled wall time (which the profiler's own host work lengthens), and
+    the device time of each kernel or copy by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -425,17 +457,20 @@ def device_busy_s(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return None, wall
+        return None, wall, by_name
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo, hi = busy + hi - lo, a, b
         else:
             hi = max(hi, b)
-    return (busy + hi - lo) * 1e-6, wall
+    return (busy + hi - lo) * 1e-6, wall, by_name
 
 
 def phase_train(seed: int, device_info: dict) -> dict:
@@ -579,7 +614,7 @@ def phase_train(seed: int, device_info: dict) -> dict:
         trainer.train_epoch(train_ds, rng)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
-        busy_s, prof_s = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
+        busy_s, prof_s, _ = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
         log("train", f"train step (forward + backward + Adam) at B={TRAIN_BATCH}, float32: {step_ms:.3f} ms "
                      f"(CUDA events, mean of {STEP_ITERS}) | {smi}")
         log("train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
@@ -633,6 +668,234 @@ def phase_train(seed: int, device_info: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def video_config(root: str, base: str, seed: int, epochs: int = VIDEO_EPOCHS) -> "Config":
+    """configs/visual_config.yaml's model and recipe on ``root``."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "num_classes": len(WORDS)},
+        "model": {"name": "resnet_trans", "resnet_version": 18, "shufflenet_version": "0.5x",
+                  "feature_dim": None, "dropout": None, "dtype": "float32"},
+        "training": {"batch_size": VIDEO_BATCH, "epochs": epochs, "learning_rate": VIDEO_LR,
+                     "weight_decay": VIDEO_WD, "seed": seed},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def phase_video_train(seed: int, device_info: dict, tmp: str) -> dict:
+    from multimodal_lipread_torch.data.glips import lip_regions_root
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.video import get_video_model
+    from multimodal_lipread_torch.pipelines import video as video_pipeline
+    from multimodal_lipread_torch.pipelines.common import load_video_datasets
+    from multimodal_lipread_torch.tools.train_drift import first_steps
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=VIDEO_CLIPS_PER_SPLIT,
+                                seed=seed, with_audio=False, with_lip_regions=True)
+    lip_root = lip_regions_root(root)
+    load_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        datasets, index = load_video_datasets(lip_root)
+        load_s.append(time.perf_counter() - t0)
+    lips = datasets["train"].inputs[0]
+    log("video-train", f"synthetic lip corpus from --seed: {len(index.entries)} .npy files, "
+                       f"{len(datasets['train'])} per split, {len(index.classes)} words, {lips.shape} {lips.dtype}; "
+                       f"np.load of the corpus, median of 3: {np.median(load_s) * 1e3:.2f} ms "
+                       f"({sum(d.inputs[0].nbytes for d in datasets.values()) / 2**20:.1f} MiB) | "
+                       f"host CPU ({os.cpu_count()} cores)")
+
+    cfg = video_config(root, os.path.join(tmp, "run"), seed)
+    t0 = time.perf_counter()
+    result = video_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log("video-train", f"pipelines.video.main: resnet_trans (ResNet18, d 256, 2 layers x 4 heads, FF 1024), "
+                       f"float32, batch {VIDEO_BATCH}, {VIDEO_EPOCHS} epochs in {wall:.2f} s (load, model build, "
+                       f"training, evaluation, checkpoints)")
+    hist = result["history"]
+    for h in hist:
+        log("video-train", f"epoch {h['epoch']}: train {h['train_loss']:.4f}/{h['train_acc']:.2f}% "
+                           f"val {h['val_loss']:.4f}/{h['val_acc']:.2f}% test {h['test_loss']:.4f}/"
+                           f"{h['test_acc']:.2f}% lr {h['lr']:.2e}, {h['seconds']:.3f} s, "
+                           f"{h['clips_per_sec']:.1f} clips/s (train + val + test) | {smi}")
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
+    if len(hist) != VIDEO_EPOCHS or not np.isfinite(losses).all():
+        raise SystemExit(f"video training gave {len(hist)} epochs, losses {losses}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise SystemExit("the video train loss did not fall from epoch 1 to the last epoch")
+    best = result.get("best_checkpoint")
+    results_txt = os.path.join(tmp, "run", "models_trained", "test_results.txt")
+    if not best or not os.path.isfile(best) or not os.path.isfile(results_txt):
+        raise SystemExit("no best checkpoint or no test_results.txt")
+    log("video-train", f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
+                       f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+
+    train_ds = datasets["train"]
+
+    def trainer_for(device=DEVICE, lr=VIDEO_LR, name="resnet_trans"):
+        return Trainer(get_video_model("resnet_trans", len(WORDS)), TrainerConfig(
+            model_name=name, num_classes=len(WORDS), batch_size=VIDEO_BATCH, epochs=1, learning_rate=lr,
+            weight_decay=VIDEO_WD, seed=seed, host_prefetch=0, scheduler_mode="max",
+            metrics_dir=os.path.join(tmp, name, device, "metrics"),
+            checkpoints_dir=os.path.join(tmp, name, device, "models_trained")), device=device)
+
+    trainer = trainer_for()
+    trainer.init_state()
+    batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
+    step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
+        torch.cuda.synchronize()
+        n += 1
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(train_ds, rng)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_step(*batch)
+    flops = counter.get_total_flops()
+    frames = VIDEO_BATCH * lips.shape[1]
+    log("video-train", f"train step (forward + backward + Adam) at B={VIDEO_BATCH} ({frames} frames), float32: "
+                       f"{step_ms:.3f} ms (CUDA events, mean of {STEP_ITERS}); {flops / 1e9:.1f} GFLOP of "
+                       f"convolutions and matrix products (torch.utils.flop_counter), "
+                       f"{flops / step_ms / 1e9:.2f} TFLOP/s, {100 * flops / step_ms * 1e3 / PEAK_FP32_FLOPS:.1f} % "
+                       f"of the fp32 peak | {smi}")
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("video-train", f"device time by kernel over a profiled epoch ({total * 1e3:.2f} ms summed): " + "; ".join(
+        f"{name[:70]} {t * 1e3:.2f} ms ({100 * t / total:.1f} %)" for name, t in top))
+    log("video-train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
+                       f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
+                       f"(uint8 gather, pin, copy, synchronized) | {smi}")
+    log("video-train", "card idle over a training epoch: " + (
+        "not measured: the profiler recorded no device activity" if busy_s is None else
+        f"{100.0 * (1.0 - busy_s / epoch_s):.1f} % (device activity {busy_s * 1e3:.2f} ms in a profiled epoch, "
+        f"torch.profiler, over the unprofiled epoch's {epoch_s * 1e3:.2f} ms; the profiled epoch took "
+        f"{prof_s * 1e3:.2f} ms)") + f" | {smi}")
+
+    kw = dict(batch_size=VIDEO_BATCH, pipeline="video", model_name="resnet_trans")
+    card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
+                                               os.path.join(tmp, "parity"), **kw))
+                        for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
+                                              (DEVICE, torch.float64)))
+    rel = np.abs(card / cpu - 1.0)
+    ok = bool(np.all(rel <= PARITY_RTOL))
+    log("video-train", f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
+                       f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
+                       f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
+                       f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
+    if not ok:
+        raise SystemExit("the card's video training steps disagree with the CPU's")
+    card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, VIDEO_LR, PARITY_STEPS, seed,
+                                          os.path.join(tmp, "drift"), **kw))
+                   for dtype in (torch.float32, torch.float64))
+    rel = np.abs(card / exact - 1.0)
+    ok = bool(np.all(rel <= VIDEO_DRIFT_RTOL))
+    log("video-train", f"first {PARITY_STEPS} steps at the trained lr {VIDEO_LR:g}, dropout 0, same init and "
+                       f"batches: card float32 {card.tolist()} float64 on the card {exact.tolist()} relative "
+                       f"{rel.tolist()} (tolerance {VIDEO_DRIFT_RTOL.tolist()}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's float32 video training steps at the trained lr stray from float64")
+    return {"cfg": cfg, "best": best, "index": index, "final_test_acc": result["final_test_acc"]}
+
+
+def video_request_breakdown(net: torch.nn.Module, paths: list) -> dict:
+    """Milliseconds of each stage of one video request: the ``.npy`` load
+    (host clock), then on the card's timeline (CUDA events) the uint8 copy
+    to the card, the forward (scaling to [0, 1] included) and the copy of
+    the logits back; ``device idle`` is the share of the wall time outside
+    those."""
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    names = ("npy load", "uint8 H2D", "forward", "D2H")
+    totals = np.zeros(len(names) + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode(), model_precision(torch.float32):
+        for _ in range(BREAKDOWN_ITERS):
+            t0 = time.perf_counter()
+            lips = np.stack([np.load(p) for p in paths])
+            t_load = time.perf_counter() - t0
+            ev[0].record()
+            x = torch.from_numpy(lips).to(DEVICE)
+            ev[1].record()
+            logits = net(x.to(torch.float32) / 255.0)
+            ev[2].record()
+            logits.cpu()
+            ev[3].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            device = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+            totals += [t_load * 1e3, *device, 100.0 * (1.0 - sum(device) / (wall * 1e3))]
+    out = dict(zip(names, totals[:-1] / BREAKDOWN_ITERS))
+    return {**out, "device idle %": totals[-1] / BREAKDOWN_ITERS}
+
+
+def phase_video_serve(video: dict, device_info: dict) -> None:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.pipelines.common import load_lip_sequences
+
+    smi, cfg, best, index = device_info["smi"], video["cfg"], video["best"], video["index"]
+    test = index.by_split("test")
+    paths = [e.path for e in test]
+    labels = np.asarray([index.class_to_idx[e.word] for e in test])
+    requests = [paths[i : i + VIDEO_BATCH] for i in range(0, len(paths), VIDEO_BATCH)]
+    serving.predict_clips(cfg, best, "video", [[p] for p in requests[0]], VIDEO_BATCH, device=DEVICE)  # warm-up
+    through_api = []
+    for i, req in enumerate(requests):
+        t0 = time.perf_counter()
+        res = serving.predict_clips(cfg, best, "video", [[p] for p in req], VIDEO_BATCH, device=DEVICE)
+        dt = time.perf_counter() - t0
+        through_api += [r["logits"] for r in res]
+        if i < 2:
+            log("video-serve", f"predict_clips(pipeline='video') request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
+                               f"incl. model build + checkpoint load + .npy load | {smi}")
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("video", cfg), best, VIDEO_BATCH, device=DEVICE)
+    predictor.predict_logits(load_lip_sequences(requests[0]))  # warm-up
+    resident, total_s = [], 0.0
+    for req in requests:
+        t0 = time.perf_counter()
+        resident.append(predictor.predict_logits(load_lip_sequences(req)))
+        total_s += time.perf_counter() - t0
+    resident = np.concatenate(resident)
+    log("video-serve", f"resident Predictor: {len(paths)} clips in {len(requests)} requests of {VIDEO_BATCH}, "
+                       f"{total_s * 1e3:.2f} ms, {total_s / len(requests) * 1e3:.3f} ms per request, "
+                       f"{len(paths) / total_s:.1f} clips/s (.npy load + uint8 H2D + resnet_trans + D2H) | {smi}")
+    stages = video_request_breakdown(predictor.model, requests[0])
+    log("video-serve", f"one request of {len(requests[0])} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
+        f"{k} {v:.3f}" + ("" if k.endswith("%") else " ms") for k, v in stages.items()) + f" | {smi}")
+
+    accuracy = 100.0 * float((resident.argmax(-1) == labels).mean())
+    log("video-serve", f"served accuracy on the {len(paths)} test clips {accuracy:.2f}% "
+                       f"(final test {video['final_test_acc']:.2f}%)")
+    if abs(accuracy - video["final_test_acc"]) > 100.0 / len(paths) + 1e-9:
+        raise SystemExit("the served video checkpoint's accuracy differs from the final test's")
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("video", cfg), best, VIDEO_BATCH, device="cpu")
+    ref = cpu.predict_logits(load_lip_sequences(paths))
+    spread = float(np.ptp(ref, axis=0).max())
+    log("video-serve", f"CPU logits: scale {float(np.abs(ref).max()):.3f}, largest spread across clips {spread:.3f}")
+    if not spread >= 10 * LOGITS_TOL:
+        raise SystemExit("the video logits barely depend on the input: the comparison below could not fail")
+    for name, logits in (("predict_clips", np.asarray(through_api)), ("resident", resident)):
+        if logits.shape != (len(paths), len(WORDS)) or not np.isfinite(logits).all():
+            raise SystemExit(f"{name}: video logits of shape {logits.shape}, finite={np.isfinite(logits).all()}")
+        err = float(np.abs(logits - ref).max())
+        ok = np.allclose(logits, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+        log("video-serve", f"{name} card logits vs the same weights on the CPU: max abs err {err:.3e} "
+                           f"(tolerance {LOGITS_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: the card's video logits disagree with the CPU's")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -646,6 +909,12 @@ def main(argv=None) -> int:
     launches = phase_serve(args.seed, device_info)
     train = phase_train(args.seed, device_info)
     launches += train["launches"]
+    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_video_")
+    try:
+        video = phase_video_train(args.seed, device_info, tmp)
+        phase_video_serve(video, device_info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     row = kernel["rows"][SERVE_BATCH]
     print(json.dumps({"kernels": [{
         "name": "logmel",

@@ -1,10 +1,12 @@
 """GLips directory scanning (counterpart of the JAX package's
-``data/glips.py``; the lip-region and cross-modality parts wait for the
-video slice).
+``data/glips.py``; the cross-modality alignment waits for the fusion
+slices).
 
-Layout: ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.{m4a,wav,flac}``;
-the sequence id is the ``NNNN-NNNN`` part of the file name, and the class
-list is the sorted set of word directories.
+Layout: ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.{m4a,wav,flac}``
+and the lip-region mirror tree
+``<root>_lip_regions/lipread_files/<word>/<split>/<word>_NNNN-NNNN.npy``
+((29, 44, 44, 3) uint8); the sequence id is the ``NNNN-NNNN`` part of the
+file name, and the class list is the sorted set of word directories.
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ def lipread_files_dir(root: str) -> str:
     return cand if os.path.isdir(cand) else root
 
 
+def lip_regions_root(root: str) -> str:
+    """The lip-region mirror tree of ``root``: the sibling directory
+    ``<root>_lip_regions`` (``root`` normalized first, so a trailing slash
+    does not give ``<root>/_lip_regions``)."""
+    root = os.path.normpath(root)
+    return os.path.join(os.path.dirname(root), os.path.basename(root) + "_lip_regions")
+
+
 def scan_glips(
     root: str,
     exts: Sequence[str] = AUDIO_EXTS,
@@ -102,4 +112,40 @@ def scan_glips(
                 index.entries.append(
                     ClipEntry(word=word, split=split, sequence_id=sid, path=best[sid][1])
                 )
+    return index
+
+
+def scan_lip_regions(lip_root: str, splits: Sequence[str] = SPLITS) -> GlipsIndex:
+    """Index every ``.npy`` file under ``lip_root``, at any depth, taking
+    (word, split) from the two directories above the file. Entries are
+    sorted by (word, sequence id, split), the classes are the sorted words
+    found, and two files with one key raise ``RuntimeError``."""
+    if not os.path.isdir(lip_root):
+        raise FileNotFoundError(
+            f"Lip-region directory not found: {lip_root}. Run the lip-extraction "
+            f"preprocessing first (python -m multimodal_lipread_tpu.data.lip_extraction; "
+            f"not ported to PyTorch yet, ROADMAP.md Queue 1 #11)."
+        )
+    entries: Dict[Tuple[str, str, str], ClipEntry] = {}
+    words = set()
+    for dirpath, _dirnames, filenames in os.walk(lip_root):
+        for name in sorted(filenames):
+            if not name.endswith(".npy"):
+                continue
+            sid = extract_sequence_id(name)
+            if sid is None:
+                continue
+            parts = os.path.normpath(dirpath).split(os.sep)
+            if len(parts) < 2:
+                continue
+            split, word = parts[-1], parts[-2]
+            if split not in splits:
+                continue
+            key = (word, sid, split)
+            if key in entries:
+                raise RuntimeError(f"Duplicate lip-region file for key {key}: {os.path.join(dirpath, name)}")
+            entries[key] = ClipEntry(word=word, split=split, sequence_id=sid, path=os.path.join(dirpath, name))
+            words.add(word)
+    index = GlipsIndex(root=lip_root, classes=sorted(words))
+    index.entries = [entries[k] for k in sorted(entries)]
     return index

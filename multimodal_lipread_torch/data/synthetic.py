@@ -1,13 +1,14 @@
-"""Synthetic mini-GLips audio corpus (the audio half of the JAX package's
-``data/synthetic.py``, numpy only).
+"""Synthetic mini-GLips corpus: audio clips and lip-region tensors (the
+audio and lip halves of the JAX package's ``data/synthetic.py``, numpy
+only; its cue descriptions and rendered .mp4 files are not ported).
 
 Writes ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.wav`` (16 kHz
-PCM16, 1.25 s) with class-conditional signals: a harmonic stack at a
+PCM16, 1.25 s) and ``<root>_lip_regions/lipread_files/<word>/<split>/
+<word>_NNNN-NNNN.npy`` ((29, 44, 44, 3) uint8) with class-conditional
+signals, so models can fit the corpus: for audio a harmonic stack at a
 class-specific pitch (up to 8 classes) or a two-tone grid code (more
-classes), so models can fit the corpus. For the same arguments it writes
-the same bytes as the JAX package's ``make_synthetic_glips`` called with
-``with_lip_regions=False, with_cues=False``: the random stream is drawn in
-the same order.
+classes); for lips a class-specific brightness and stripe period (up to 8
+classes) or a brightness × stripe grid code (more classes).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Sequence, Union
 import numpy as np
 
 from multimodal_lipread_torch.data.audio_io import SAMPLE_RATE, TARGET_SAMPLES, write_wav
-from multimodal_lipread_torch.data.glips import SPLITS
+from multimodal_lipread_torch.data.glips import SPLITS, lip_regions_root
 
 DEFAULT_WORDS = ("abend", "bereits", "cirka", "dabei")
 
@@ -83,6 +84,48 @@ def _synth_waveform_many(
     return (wave * envelope * 8000.0).astype(np.float32)
 
 
+def _synth_lip_sequence(
+    rng: np.random.Generator, class_idx: int, num_classes: int = 4, hardness: float = 0.0
+) -> np.ndarray:
+    """(29, 44, 44, 3) uint8 frames with a class-specific brightness and
+    horizontal stripe period over uniform pixel noise.
+
+    ``hardness`` shrinks the brightness and stripe separation, adds a
+    per-clip brightness and contrast nuisance and a random stripe phase,
+    raises the noise, and with probability 0.5·hardness takes the whole
+    signature from a random class while the label stays. Beyond 8 classes
+    the class is a grid code: brightness level i of k and stripe period
+    j + 2 (k = ceil(sqrt(num_classes)))."""
+    if hardness > 0 and rng.uniform() < 0.5 * hardness:
+        class_idx = int(rng.integers(num_classes))
+    if num_classes > 8:
+        k = int(np.ceil(np.sqrt(num_classes)))
+        i, j = class_idx // k, class_idx % k
+        base = 30.0 + (185.0 / max(k - 1, 1)) * i
+        if hardness > 0:
+            base = base + hardness * rng.uniform(-45, 45)
+        noise_amp = 30 + 150 * hardness
+        frames = rng.integers(0, max(1, int(noise_amp)), size=(29, 44, 44, 3), dtype=np.int64)
+        yy = np.arange(44)[None, :, None, None]
+        stripe_amp = 60.0 * (1.0 - 0.8 * hardness)
+        phase = int(rng.integers(0, 2 + j)) if hardness > 0 else 0
+        stripes = (((yy + phase) // (2 + j)) % 2) * stripe_amp
+        contrast = 1.0 + hardness * rng.uniform(-0.3, 0.3) if hardness > 0 else 1.0
+        return np.clip((base + frames + stripes) * contrast, 0, 255).astype(np.uint8)
+    sep = 40.0 * (1.0 - 0.85 * hardness)
+    base = 40 + sep * class_idx
+    if hardness > 0:
+        base = base + hardness * rng.uniform(-45, 45)
+    noise_amp = 30 + 150 * hardness
+    frames = rng.integers(0, max(1, int(noise_amp)), size=(29, 44, 44, 3), dtype=np.int64)
+    yy = np.arange(44)[None, :, None, None]
+    stripe_amp = 60.0 * (1.0 - 0.8 * hardness)
+    phase = int(rng.integers(0, 2 + class_idx)) if hardness > 0 else 0
+    stripes = (((yy + phase) // (2 + class_idx)) % 2) * stripe_amp
+    contrast = 1.0 + hardness * rng.uniform(-0.3, 0.3) if hardness > 0 else 1.0
+    return np.clip((base + frames + stripes) * contrast, 0, 255).astype(np.uint8)
+
+
 def make_synthetic_glips(
     root: str,
     words: Sequence[str] = DEFAULT_WORDS,
@@ -91,22 +134,37 @@ def make_synthetic_glips(
     seed: int = 0,
     hardness: Union[float, dict] = 0.0,
     label_noise: float = 0.0,
+    with_audio: bool = True,
+    with_lip_regions: bool = False,
 ) -> str:
-    """Write a synthetic GLips audio tree under ``root``; returns ``root``.
+    """Write a synthetic GLips tree under ``root``; returns ``root``.
 
-    ``hardness`` is a float or a mapping with an ``audio`` key (the JAX
-    function's per-modality form). ``label_noise`` redraws the signal class
-    of that fraction of train clips while the folder word (the label)
-    stays. Sequence ids run ``0000-0001``, ``0002-0003``, ... over the whole
-    corpus, wrapping at 10000."""
+    ``with_audio`` writes the WAV clips, ``with_lip_regions`` the lip
+    tensors into the mirror tree ``<root>_lip_regions``; the default is
+    audio only. ``hardness`` is a float or a mapping with ``audio`` and
+    ``video`` keys (the JAX function's per-modality form). ``label_noise``
+    redraws the signal class of that fraction of train clips while the
+    folder word (the label) stays. Sequence ids run ``0000-0001``,
+    ``0002-0003``, ... over the whole corpus, wrapping at 10000.
+
+    One random stream is drawn per corpus, per clip in the JAX function's
+    order (label noise, waveform, lips), so for the same arguments the
+    files are byte for byte those of the JAX package's
+    ``make_synthetic_glips`` called with ``with_cues=False`` and the same
+    ``with_audio`` and ``with_lip_regions`` (the default here equals
+    ``with_lip_regions=False, with_cues=False``)."""
     if clips_per_split > 5000:
         raise ValueError(
             f"clips_per_split={clips_per_split} > 5000 would wrap the 4-digit "
             "sid space within one (word, split) directory and overwrite clips"
         )
     rng = np.random.default_rng(seed)
-    h_audio = float(hardness.get("audio", 0.0)) if isinstance(hardness, dict) else float(hardness)
+    if isinstance(hardness, dict):
+        h_audio, h_video = float(hardness.get("audio", 0.0)), float(hardness.get("video", 0.0))
+    else:
+        h_audio = h_video = float(hardness)
     words = sorted(words)
+    lip_root = lip_regions_root(root)
     seq_counter = 0
     for ci, word in enumerate(words):
         for split in splits:
@@ -116,6 +174,11 @@ def make_synthetic_glips(
                 sig_ci = ci
                 if label_noise > 0 and split == "train" and rng.uniform() < label_noise:
                     sig_ci = int(rng.integers(len(words)))
-                path = os.path.join(root, "lipread_files", word, split, f"{word}_{sid}.wav")
-                write_wav(path, _synth_waveform(rng, sig_ci, len(words), h_audio))
+                if with_audio:
+                    path = os.path.join(root, "lipread_files", word, split, f"{word}_{sid}.wav")
+                    write_wav(path, _synth_waveform(rng, sig_ci, len(words), h_audio))
+                if with_lip_regions:
+                    path = os.path.join(lip_root, "lipread_files", word, split, f"{word}_{sid}.npy")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    np.save(path, _synth_lip_sequence(rng, sig_ci, len(words), h_video))
     return root

@@ -1,1 +1,1 @@
-"""Model zoo of the port (so far the audio ``vgg_lstm``)."""
+"""Model zoo of the port: the audio ``vgg_lstm`` and the seven video models."""

@@ -1,6 +1,7 @@
-"""Common building blocks: adaptive pooling, BatchNorm, dropout, MLPs, the
-classifier head and the Flax-style initializers (counterpart of the JAX
-package's ``nn/common.py``).
+"""Common building blocks: time-distributed application, adaptive pooling,
+BatchNorm, LayerNorm, dropout, MLPs, the classifier head and the
+Flax-style initializers (counterpart of the JAX package's
+``nn/common.py``).
 
 Submodule names follow the JAX modules' (``dense{i}``, ``bn{i}``, ``out``;
 ``fc1``, ``bn``, ``fc2``) so that ``utils/jax_bridge.py`` maps parameters by
@@ -8,14 +9,14 @@ name. Tensors are NCHW / (B, F), PyTorch's layout.
 
 Parameters and buffers stay float32 whatever the compute dtype: a layer
 casts its weights to its input's dtype where it uses them (``linear``,
-``conv2d``), as a Flax module with ``dtype=bfloat16`` computes in bf16 from
-float32 parameters.
+``conv1d``, ``conv2d``), as a Flax module with ``dtype=bfloat16`` computes
+in bf16 from float32 parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,10 +25,20 @@ from torch import nn
 # Flax BatchNorm momentum: the weight of the old running value
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+# Flax nn.LayerNorm's default epsilon (torch's is 1e-5)
+LN_EPS = 1e-6
 # lecun_normal draws a normal truncated to ±2 standard deviations and
 # rescales it by this factor, the standard deviation of that truncated
 # normal, so the result has variance 1/fan_in (jax.nn.initializers)
 _TRUNC_STD = 0.87962566103423978
+
+
+def time_distributed(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Apply ``fn`` per frame: (B, T, ...) → (B, T, F...), as one call on
+    the (B·T, ...) reshape."""
+    b, t = x.shape[:2]
+    out = fn(x.reshape((b * t,) + x.shape[2:]))
+    return out.reshape((b, t) + out.shape[1:])
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: Sequence[Optional[int]]) -> torch.Tensor:
@@ -47,6 +58,12 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer`` applied in ``x``'s dtype (float32 weights cast to it)."""
     return F.linear(x, layer.weight.to(x.dtype), _cast(layer.bias, x.dtype))
+
+
+def conv1d(layer: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied in ``x``'s dtype (float32 weights cast to it)."""
+    return F.conv1d(x, layer.weight.to(x.dtype), _cast(layer.bias, x.dtype),
+                    layer.stride, layer.padding, layer.dilation, layer.groups)
 
 
 def conv2d(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -92,21 +109,43 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm()`` over the last dimension: epsilon 1e-6,
+    statistics and normalization in float32 (or wider), the result in the
+    input's dtype; scale 1 and bias 0 at initialization. The variance is
+    taken in two passes (Flax: E[x²] − E[x]², which loses digits where the
+    mean is far larger than the spread)."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return F.layer_norm(xf, self.weight.shape, self.weight, self.bias, LN_EPS).to(x.dtype)
+
+
 class Dropout(nn.Module):
     """Inverted dropout whose masks come from ``self.generator`` when one
-    is set (the trainer sets its own), else from torch's default one."""
+    is set (the trainer sets its own), else from torch's default one.
 
-    def __init__(self, rate: float):
+    ``broadcast_dims`` share one mask along those dimensions (Flax's
+    ``nn.Dropout(broadcast_dims=...)``)."""
+
+    def __init__(self, rate: float, broadcast_dims: Sequence[int] = ()):
         super().__init__()
         self.rate = rate
+        self.broadcast_dims = tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
-        if self.generator is None:
+        if self.generator is None and not self.broadcast_dims:
             return F.dropout(x, self.rate, True)
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.rate, generator=self.generator)
+        shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+        keep = x.new_empty(shape).bernoulli_(1.0 - self.rate, generator=self.generator)
         return x * keep / (1.0 - self.rate)
 
 
@@ -174,9 +213,13 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     place, from ``generator`` (a CPU generator; values are drawn on the CPU
     and copied to the parameters' device):
 
-    - Conv and Linear weights: lecun-normal, a normal truncated at ±2σ
-      scaled to variance 1/fan_in; biases 0;
+    - Conv (1-D, 2-D, grouped) and Linear weights: lecun-normal, a normal
+      truncated at ±2σ scaled to variance 1/fan_in, where fan_in is one
+      output's inputs (``weight[0].numel()``: (I/groups)·kh·kw for a conv,
+      D for the attention's query/key/value, heads·head_dim for its
+      output); biases 0;
     - BatchNorm: scale 1, bias 0, running mean 0, running variance 1;
+    - LayerNorm: scale 1, bias 0;
     - LSTM weights and biases: uniform on ±1/√H (``nn/recurrent.py`` of the
       JAX package).
 
@@ -188,7 +231,7 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(fill(torch.empty(p.shape, dtype=torch.float32)))
 
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             draw(m.weight, lambda t: nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std))
@@ -199,6 +242,9 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, nn.LSTM):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for w in m._flat_weights:

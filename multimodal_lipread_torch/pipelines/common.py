@@ -1,10 +1,12 @@
 """Shared pipeline plumbing: config → arrays → Trainer (counterpart of the
-JAX package's ``pipelines/common.py``, audio part).
+JAX package's ``pipelines/common.py``, audio and video parts).
 
-Features are computed once, up front, on the device: every split's clips
-are decoded on the host (the threaded native decoder) and featurized by the
-log-mel kernel in chunks of 256 clips. The video loaders and pretrained
-grafting wait for later slices (ROADMAP.md).
+Audio features are computed once, up front, on the device: every split's
+clips are decoded on the host (the threaded native decoder) and featurized
+by the log-mel kernel in chunks of 256 clips. Lip tensors are loaded once
+and kept uint8 on the host; the trainer and the predictor scale them to
+[0, 1] on the device. Pretrained grafting waits for a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ import torch
 
 from multimodal_lipread_torch.config import Config, coerce_yaml_scalar, load_config
 from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES, load_waveform
-from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, scan_glips
+from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, scan_glips, scan_lip_regions
 from multimodal_lipread_torch.ops.logmel_cuda import log_mel
 from multimodal_lipread_torch.train.trainer import ArrayDataset
 
 MEL_BINS = 80
+LIP_SHAPE = (29, 44, 44, 3)
 
 
 def compute_logmel_features(
@@ -93,6 +96,36 @@ def load_audio_datasets(
         mels = compute_logmel_features(waves, input_size=input_size, device=device)
         labels = np.asarray([class_to_idx[e.word] for e in entries], np.int32)
         datasets[split] = ArrayDataset(inputs=(mels,), labels=labels)
+    return datasets, index
+
+
+def load_lip_sequences(paths: Sequence[str]) -> np.ndarray:
+    """Lip-region ``.npy`` files → (N, 29, 44, 44, 3) uint8, NTHWC: a
+    quarter of the float bytes cross to the device, where the trainer or
+    the predictor scales them to [0, 1]."""
+    if not paths:
+        return np.zeros((0,) + LIP_SHAPE, np.uint8)
+    return np.stack([np.load(p) for p in paths])
+
+
+def load_video_datasets(
+    lip_root: str, splits: Sequence[str] = SPLITS,
+) -> Tuple[Dict[str, ArrayDataset], GlipsIndex]:
+    """Scan a lip-region mirror tree and load every split's lip tensors;
+    returns the per-split datasets and the index."""
+    index = scan_lip_regions(lip_root)
+    class_to_idx = index.class_to_idx
+    datasets: Dict[str, ArrayDataset] = {}
+    for split in splits:
+        entries = index.by_split(split)
+        if not entries:
+            raise RuntimeError(
+                f"No lip-region files found for split '{split}' under {lip_root} — "
+                f"run the lip-extraction preprocessing first"
+            )
+        lips = load_lip_sequences([e.path for e in entries])
+        labels = np.asarray([class_to_idx[e.word] for e in entries], np.int32)
+        datasets[split] = ArrayDataset(inputs=(lips,), labels=labels)
     return datasets, index
 
 

@@ -1,17 +1,22 @@
-"""Inference / serving of the audio pipeline (counterpart of the JAX
-package's ``serving.py``).
+"""Inference / serving of the audio and video pipelines (counterpart of
+the JAX package's ``serving.py``).
 
 - ``Predictor``: a trained model from a checkpoint, in eval mode on one
   device; serves any number of inputs in fixed-size batches, padding the
-  last one.
+  last one; uint8 inputs cross to the device as they are and are scaled
+  to [0, 1] there.
 - ``predict_audio_clips``: WAV files → host decode (the threaded native
   decoder) → log-mel on the device (the CUDA kernel of
   ``ops/logmel_cuda.py``) → classifier.
-- a CLI: ``python -m multimodal_lipread_torch.serving --pipeline audio
-  --config <yaml> --checkpoint <path> <clips...>`` → JSON predictions.
+- ``predict_clips``: any ported pipeline, per-clip groups of files →
+  featurize (``_featurize_modalities``) → classify; for ``video`` the
+  lip-region ``.npy`` files, kept uint8 up to the device.
+- a CLI: ``python -m multimodal_lipread_torch.serving --pipeline
+  audio|video --config <yaml> --checkpoint <path> <clips...>`` → JSON
+  predictions (WAV files for audio, lip-region ``.npy`` files for video).
 
 Not ported yet (ROADMAP.md): data-parallel serving, graph export, the
-other pipelines, ``device_preproc``.
+five fusion and cue pipelines, ``device_preproc``.
 """
 
 from __future__ import annotations
@@ -145,7 +150,114 @@ def predict_audio_clips(
     ]
 
 
-PIPELINES = ("audio",)
+PIPELINES = ("audio", "video")
+# per-pipeline input modalities, in the model's order: 'a' = audio clip
+# path, 'v' = lip-region .npy path, 'c' = cue text file (the JAX package's)
+_PIPELINE_INPUTS = {
+    "audio": "a",
+    "video": "v",
+    "audio_video": "av",
+    "cues": "c",
+    "audio_cues": "ac",
+    "cues_video": "cv",
+    "audio_cues_video": "acv",
+}
+
+
+def _unported(pipeline: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"pipeline '{pipeline}' is not ported to PyTorch yet; ported: {', '.join(PIPELINES)} "
+        "(see ROADMAP.md, Queue 1 #9-10)"
+    )
+
+
+def build_model(pipeline: str, config: Any) -> nn.Module:
+    """The model exactly as the pipeline's training entry builds it (a
+    different knob gives other parameter names, and the checkpoint does
+    not load)."""
+    from multimodal_lipread_torch.pipelines.common import model_dtype
+
+    if pipeline == "audio":
+        raise ValueError("audio uses predict_audio_clips (streaming-aware)")
+    if pipeline == "video":
+        from multimodal_lipread_torch.models.video import get_video_model
+
+        return get_video_model(
+            config.get("model.name", "resnet_lstm"), config.get("dataset.num_classes", 4),
+            dtype=model_dtype(config),
+            resnet_version=config.get("model.resnet_version", 18),
+            shufflenet_version=config.get("model.shufflenet_version", "0.5x"),
+            feature_dim=config.get("model.feature_dim"),
+            dropout=config.get("model.dropout"),
+        )
+    if pipeline in _PIPELINE_INPUTS:
+        raise _unported(pipeline)
+    raise ValueError(f"unknown pipeline '{pipeline}' (one of {tuple(_PIPELINE_INPUTS)})")
+
+
+def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[str]]) -> tuple:
+    """Per-clip file groups (one path per modality, in the order of
+    ``_PIPELINE_INPUTS``) → the model's input arrays, as the training
+    pipeline featurizes them. Lips are loaded as uint8 (a float file in
+    [0, 1] is scaled to uint8) and scaled to [0, 1] on the device by the
+    predictor. The audio pipeline goes through ``predict_audio_clips``."""
+    if pipeline == "audio":
+        raise ValueError("audio uses predict_audio_clips (streaming-aware)")
+    if pipeline not in PIPELINES:
+        raise _unported(pipeline)
+    codes = _PIPELINE_INPUTS[pipeline]
+    for g in groups:
+        if len(g) != len(codes):
+            raise ValueError(
+                f"pipeline '{pipeline}' needs {len(codes)} files per clip "
+                f"({','.join(codes)}: a=audio, v=lips .npy, c=cue text); got {g}"
+            )
+    lips = np.stack([np.load(g[0]) for g in groups])
+    if lips.dtype != np.uint8:
+        lips = np.clip(lips * 255.0 if lips.max() <= 1.0 else lips, 0, 255).astype(np.uint8)
+    return (lips,)
+
+
+def _class_names(config: Any) -> Optional[List[str]]:
+    """The sorted word list under ``dataset.root_dir``, from its audio
+    clips or ``.npy`` files, where there are any."""
+    from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips
+
+    root = config.get("dataset.root_dir")
+    if not root:
+        return None
+    for exts in (AUDIO_EXTS, (".npy",)):
+        try:
+            classes = scan_glips(root, exts=exts).classes
+        except FileNotFoundError:
+            continue
+        if classes:
+            return classes
+    return None
+
+
+def predict_clips(
+    config: Any, ckpt_path: str, pipeline: str, groups: Sequence[Sequence[str]],
+    batch_size: int = 32, device: str = "cuda",
+) -> List[Dict[str, Any]]:
+    """End-to-end inference for a ported pipeline: per-clip file groups →
+    featurize → classify (see ``_featurize_modalities`` for the groups)."""
+    if pipeline == "audio":
+        return predict_audio_clips(config, ckpt_path, [g[0] for g in groups], batch_size, device=device)
+    model = build_model(pipeline, config)
+    inputs = _featurize_modalities(pipeline, config, groups)
+    logits = Predictor.from_checkpoint(model, ckpt_path, batch_size, device=device).predict_logits(*inputs)
+    preds = np.argmax(logits, axis=-1)
+    classes = _class_names(config)
+    return [
+        {
+            "paths": list(g),
+            "prediction": int(p),
+            "word": classes[int(p)] if classes and int(p) < len(classes) else None,
+            "logits": [float(x) for x in row],
+        }
+        for g, p, row in zip(groups, preds, logits)
+    ]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -155,19 +267,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from multimodal_lipread_torch.config import load_config
 
     parser = argparse.ArgumentParser(
-        description="Serve an audio checkpoint of the PyTorch port: classify WAV clips",
+        description="Serve an audio or video checkpoint of the PyTorch port: classify clips",
     )
     parser.add_argument("--pipeline", default="audio", choices=PIPELINES)
     parser.add_argument("--config", required=True)
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    parser.add_argument("clips", nargs="+", help="WAV files to classify")
+    parser.add_argument("clips", nargs="+",
+                        help="files to classify: WAV clips (audio) or lip-region .npy files (video)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
-    results = predict_audio_clips(
-        config, args.checkpoint, args.clips, args.batch_size, device=args.device
-    )
+    results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],
+                            args.batch_size, device=args.device)
     print(json.dumps(results, indent=2))
 
 

@@ -26,10 +26,14 @@ from torch import nn
 
 
 def module_state(model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{params, batch_stats}`` of ``model``, copied to the CPU."""
+    """``{params, batch_stats}`` of ``model``, copied to the CPU: its
+    ``state_dict``, parameters apart from buffers. Non-persistent buffers
+    (constants such as the positional-encoding table) are left out."""
+    params = {k for k, _ in model.named_parameters()}
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     return {
-        "params": {k: v.detach().cpu().clone() for k, v in model.named_parameters()},
-        "batch_stats": {k: v.detach().cpu().clone() for k, v in model.named_buffers()},
+        "params": {k: v for k, v in state.items() if k in params},
+        "batch_stats": {k: v for k, v in state.items() if k not in params},
     }
 
 

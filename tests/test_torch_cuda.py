@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the training path there: train steps on the card against the CPU, and the
-native WAV decoder's build.
+the training and serving paths there: train steps on the card against the
+CPU (audio vgg_lstm and video resnet_trans), the video model's forward and
+the uint8 path of ``Predictor`` against the CPU, the BiLSTM's dropout
+masks, and the native WAV decoder's build.
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -16,6 +18,7 @@ import torch
 
 from multimodal_lipread_torch.models.audio import VGGWithLSTMClassifier
 from multimodal_lipread_torch.models.frontend import WaveToLogMel
+from multimodal_lipread_torch.models.video import get_video_model
 from multimodal_lipread_torch.ops import logmel_cuda
 from multimodal_lipread_torch.ops.logmel import NUM_SAMPLES, log_mel_reference
 from multimodal_lipread_torch.utils.precision import model_precision
@@ -210,3 +213,75 @@ def test_native_decoder_builds_and_decodes(cuda_device, tmp_path):
     assert native_io.get_lib() is not None and native_io.library_path().is_file()
     want = np.stack([audio_io.load_waveform(p) for p in paths])
     np.testing.assert_array_equal(decode_waveforms(paths), want)
+
+
+def _resnet_trans(seed=0):
+    from multimodal_lipread_torch.nn.common import flax_init_
+
+    return flax_init_(get_video_model("resnet_trans", 4), torch.Generator().manual_seed(seed))
+
+
+def _lips(n, t=29, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n, t, 44, 44, 3)).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_resnet_trans_forward_on_the_card_matches_the_cpu(cuda_device):
+    # visual_config.yaml's widths; float32 without TF32 on both (model_precision)
+    net = _resnet_trans().eval()
+    x = torch.from_numpy(_lips(2)).float() / 255.0
+    with torch.no_grad(), model_precision(torch.float32):
+        want = net(x)
+        got = net.to(cuda_device)(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_video_train_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    # lr 1e-5: two correct float32 runs part in proportion to lr (chip_smoke.py)
+    ds = ArrayDataset((_lips(8, t=5, seed=1),), np.arange(8, dtype=np.int32) % 4)
+    losses = {}
+    for device in ("cuda", "cpu"):
+        cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=4, learning_rate=1e-5, weight_decay=1e-5,
+                            seed=0, metrics_dir=str(tmp_path / device / "m"),
+                            checkpoints_dir=str(tmp_path / device / "c"))
+        trainer = Trainer(get_video_model("resnet_trans", 4, dropout=0.0), cfg, device=device)
+        trainer.init_state()
+        out = [trainer.train_step(*batch).tolist() for batch in trainer.batches(ds, True, np.random.default_rng(0))]
+        losses[device] = np.asarray([a[0] / a[3] for a in out])
+    assert len(losses["cuda"]) == 2
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_predictor_takes_uint8_lips_on_the_card(cuda_device):
+    from multimodal_lipread_torch.serving import Predictor
+
+    lips = _lips(5, t=29, seed=2)
+    net = _resnet_trans(1)
+    want = Predictor(net, batch_size=4, device="cpu").predict_logits(lips)
+    card = Predictor(net, batch_size=4, device="cuda")
+    got = card.predict_logits(lips)  # 5 clips: one full batch and one padded
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(card.predict_logits(lips.astype(np.float32) / 255.0), got, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bilstm_dropout_masks_come_from_the_trainers_generator_on_the_card(cuda_device):
+    from multimodal_lipread_torch.nn import BiLSTM
+
+    lstm = BiLSTM(12, 8, num_layers=2, dropout=0.5).to(cuda_device).train()
+    x = torch.randn(3, 6, 12, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    lstm.dropout.generator = gen
+    state = torch.cuda.get_rng_state()
+    gen.manual_seed(1)
+    a = lstm(x)
+    gen.manual_seed(1)
+    b = lstm(x)
+    gen.manual_seed(2)
+    c = lstm(x)
+    assert torch.equal(torch.cuda.get_rng_state(), state)
+    assert torch.equal(a, b) and not torch.equal(a, c)
