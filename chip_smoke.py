@@ -69,11 +69,41 @@ its lines and any failure ending the run with a non-zero exit:
    ``serving.predict_clips(pipeline="video")``, requests of 16 lip-region
    ``.npy`` files: each request's time, clips/s, a breakdown of one
    request (host ``.npy`` load, uint8 H2D, forward, D2H, card idle), and
-   the card's logits against the same weights on the CPU, to 1e-3.
+   the card's logits against the same weights on the CPU, to 1e-3;
+8. av-train: the port's synthetic corpus from ``--seed`` with audio and
+   lips (4 words, 32 aligned clips per split, lips kept uint8), featurized
+   by ``load_av_datasets`` with the kernel's launch count set to 0 (above 0
+   after, and the mels held to the plain version's to 1e-4); then, with the
+   count set to 0 again, ``pipelines.audio_video.main`` trains
+   ``configs/av_config.yaml``'s ``middle_fusion_mobilenet`` at its widths
+   (log-mel 80 x 117, MobileNetV3-small over 29 frames of 44 x 44 x 3, a
+   1-layer BiLSTM 256, ``fc1`` 37 632 -> 512; float32, batch 8, lr 1e-4, no
+   weight decay, no LR schedule) for 3 epochs from a ``Config.from_dict``:
+   every loss finite, the epoch-3 train loss below epoch 1's, the final
+   test on the reloaded best checkpoint, which serves with the same
+   accuracy. Then the train step's time at B=8 by CUDA events, its device
+   activities and device time by kernel, training clips/s per epoch, the
+   card's idle share over an epoch, host batching + H2D per step, the first
+   3 steps on the card against the CPU at lr 1e-5, and the card's first 3
+   float32 steps at lr 1e-4 against a float64 run of them on the card;
+9. av-serve: the best checkpoint behind ``serving.predict_clips(pipeline=
+   "audio_video")`` and in a resident ``Predictor``, requests of 16
+   ``wav,npy`` groups, each of which must launch the log-mel kernel: each
+   request's time, clips/s, a breakdown of one request (WAV decode, ``.npy``
+   load, H2D, log-mel kernel, forward, D2H, card idle), and the card's
+   logits against the same weights fed plain-version features on the card
+   and against the CPU, to 1e-3;
+10. zoo: ``model.pretrained`` with ``arch: checkpoint`` grafts [video-train]'s
+   best ``resnet_trans`` checkpoint's ``resnet`` into ``early_fusion_resnet``'s
+   ``video_encoder.cnn`` (the tensors must equal the source); then one
+   forward, backward and Adam step at full width on the card for the six
+   other AV models (B=8, this one grafted), the seven other audio models
+   (B=32) and the video ``conformer`` (B=16): every loss finite, each step's
+   time, and eval logits against the same weights on the CPU, to 1e-3.
 
-The video phases launch no hand-written kernel (the log-mel is an audio
-kernel). The line before the last is ``{"kernels": [...]}``, one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+The video phases and [zoo] launch no hand-written kernel. The line before
+the last is ``{"kernels": [...]}``, one entry per kernel, with the paths
+that launch it; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +167,23 @@ VIDEO_BATCH, VIDEO_EPOCHS, VIDEO_LR, VIDEO_WD = 16, 3, 5e-5, 1e-5
 # on an H100 (PERF.md)
 VIDEO_DRIFT_SEEDS_MAX = np.array([1.851e-7, 3.668e-5, 1.906e-4])
 VIDEO_DRIFT_RTOL = 2 * VIDEO_DRIFT_SEEDS_MAX
+# [av-train] / [av-serve]: configs/av_config.yaml's middle_fusion_mobilenet
+# on 4 words x 32 aligned clips per split (an epoch is 16 steps of 8)
+AV_MODEL, AV_INPUT_SIZE = "middle_fusion_mobilenet", 117
+AV_CLIPS_PER_SPLIT = 32
+AV_BATCH, AV_EPOCHS, AV_LR = 8, 3, 1e-4
+AV_REQUEST = 16
+# the card's first 3 float32 steps at lr 1e-4 against float64 on the card:
+# per step, twice the largest distance that `train_drift --pipeline
+# audio_video --lrs 1e-4 --no-cpu --seeds 0 0 1 2 3 4 5 6 7` read on an
+# H100 (PERF.md)
+AV_DRIFT_SEEDS_MAX = np.array([1.564e-7, 7.830e-7, 9.295e-6])
+AV_DRIFT_RTOL = 2 * AV_DRIFT_SEEDS_MAX
+# [zoo]: one training step of each model the slice ported, at full width
+ZOO_AV = ("early_fusion_resnet", "early_fusion_mobilenet", "late_fusion_mobilenet", "early_fusion_fast",
+          "late_fusion_fast", "middle_fusion_fast")
+ZOO_AUDIO = ("resnet", "resnet_lstm", "vgg", "lstm_resnet", "lstm_resnet_attn", "lstm_resnet_trans", "conformer")
+ZOO_AUDIO_BATCH, ZOO_VIDEO_BATCH, ZOO_CPU_ROWS, ZOO_ITERS = 32, 16, 4, 5
 
 
 def log(phase: str, msg: str) -> None:
@@ -444,11 +491,35 @@ def phase_serve(seed: int, device_info: dict) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def flop_counter():
+    """``torch.utils.flop_counter.FlopCounterMode`` with the weight gradient
+    of a grouped convolution counted per group. Its own formula takes a
+    grouped (depthwise) convolution's weight gradient as a full product over
+    the channels, ``groups`` times too many: MobileNetV3-small's depthwise
+    convolutions made 57.7 of the 61.0 GFLOP it counted for an audio_video
+    step (7.8 GFLOP counted per group)."""
+    import torch.utils.flop_counter as fc
+
+    def conv_backward(grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation, transposed,
+                      output_padding, groups, output_mask, out_shape, **_):
+        args = (grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation, transposed, output_padding, groups)
+        total = fc.conv_backward_flop(*args, output_mask, out_val=out_shape)
+        if groups == 1 or not output_mask[1]:
+            return total
+        weight = fc.conv_backward_flop(*args, [False, True, False], out_val=out_shape)
+        return total - weight + weight // groups
+
+    return fc.FlopCounterMode(display=False, custom_mapping={torch.ops.aten.convolution_backward: conv_backward})
+
+
 def device_busy_s(fn) -> tuple:
     """(busy s, wall s, {name: device s}) of the card while ``fn`` runs:
-    the union of the device activities ``torch.profiler`` records, the
-    profiled wall time (which the profiler's own host work lengthens), and
-    the device time of each kernel or copy by name."""
+    the union of the kernels, copies and memsets that ``torch.profiler``
+    records on the device (not the device-side spans of the profiler's
+    annotations such as ``Optimizer.step``, which also cover the gaps
+    between their kernels), the profiled wall time (which the profiler's
+    own host work lengthens), and the device time of each kernel or copy
+    by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -457,7 +528,8 @@ def device_busy_s(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-6
@@ -471,6 +543,14 @@ def device_busy_s(fn) -> tuple:
         else:
             hi = max(hi, b)
     return (busy + hi - lo) * 1e-6, wall, by_name
+
+
+def idle_line(busy_s, prof_s, epoch_s) -> str:
+    if busy_s is None:
+        return "not measured: the profiler recorded no device activity"
+    return (f"{100.0 * (1.0 - busy_s / epoch_s):.1f} % (device activity {busy_s * 1e3:.2f} ms in a profiled epoch, "
+            f"torch.profiler, over the unprofiled epoch's {epoch_s * 1e3:.2f} ms; the profiled epoch took "
+            f"{prof_s * 1e3:.2f} ms)")
 
 
 def phase_train(seed: int, device_info: dict) -> dict:
@@ -620,11 +700,8 @@ def phase_train(seed: int, device_info: dict) -> dict:
         log("train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
                      f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
                      f"(gather, pin, copy, synchronized) | {smi}")
-        log("train", "card idle over a training epoch: " + (
-            "not measured: the profiler recorded no device activity" if busy_s is None else
-            f"{100.0 * (1.0 - busy_s / epoch_s):.1f} % (device activity {busy_s * 1e3:.2f} ms in a profiled epoch, "
-            f"torch.profiler, over the unprofiled epoch's {epoch_s * 1e3:.2f} ms; the profiled epoch took "
-            f"{prof_s * 1e3:.2f} ms)") + f" | {smi}")
+        log("train", "card idle over a training epoch: "
+            + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
 
         # one epoch at model.dtype: bfloat16
         bf16 = trainer_for(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION, dtype=torch.bfloat16),
@@ -759,9 +836,7 @@ def phase_video_train(seed: int, device_info: dict, tmp: str) -> dict:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
+    with flop_counter() as counter:
         trainer.train_step(*batch)
     flops = counter.get_total_flops()
     frames = VIDEO_BATCH * lips.shape[1]
@@ -777,11 +852,8 @@ def phase_video_train(seed: int, device_info: dict, tmp: str) -> dict:
     log("video-train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
                        f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
                        f"(uint8 gather, pin, copy, synchronized) | {smi}")
-    log("video-train", "card idle over a training epoch: " + (
-        "not measured: the profiler recorded no device activity" if busy_s is None else
-        f"{100.0 * (1.0 - busy_s / epoch_s):.1f} % (device activity {busy_s * 1e3:.2f} ms in a profiled epoch, "
-        f"torch.profiler, over the unprofiled epoch's {epoch_s * 1e3:.2f} ms; the profiled epoch took "
-        f"{prof_s * 1e3:.2f} ms)") + f" | {smi}")
+    log("video-train", "card idle over a training epoch: "
+        + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
 
     kw = dict(batch_size=VIDEO_BATCH, pipeline="video", model_name="resnet_trans")
     card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
@@ -896,6 +968,378 @@ def phase_video_serve(video: dict, device_info: dict) -> None:
             raise SystemExit(f"{name}: the card's video logits disagree with the CPU's")
 
 
+def av_config(root: str, base: str, seed: int, **model) -> "Config":
+    """configs/av_config.yaml's model and recipe on ``root``."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "num_classes": len(WORDS), "audio_input_size": AV_INPUT_SIZE},
+        "model": {"name": AV_MODEL, "dtype": "float32", **model},
+        "training": {"batch_size": AV_BATCH, "epochs": AV_EPOCHS, "learning_rate": AV_LR, "seed": seed},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def phase_av_train(seed: int, device_info: dict, tmp: str) -> dict:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import align_modalities, lip_regions_root, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.audio_video import get_av_model
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines import audio_video as av_pipeline
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.tools.train_drift import first_steps
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    tmp = os.path.join(tmp, "av")  # apart from the video phases' corpus and runs
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=AV_CLIPS_PER_SPLIT,
+                                seed=seed, with_lip_regions=True)
+    lip_root = lip_regions_root(root)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    datasets, classes = av_pipeline.load_av_datasets(root, lip_root, input_size=AV_INPUT_SIZE, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    featurize_launches = logmel_cuda.launch_count
+    mels, lips = datasets["train"].inputs
+    log("av-train", f"synthetic corpus from --seed: {sum(len(d) for d in datasets.values())} aligned wav + .npy "
+                    f"clips, {len(datasets['train'])} per split, {len(classes)} words; mels {mels.shape} "
+                    f"{mels.dtype}, lips {lips.shape} {lips.dtype}; load_av_datasets (decode, log-mel on the card, "
+                    f"np.load) {load_s * 1e3:.2f} ms with {featurize_launches} log-mel kernel launches")
+    if featurize_launches < 1:
+        raise SystemExit("the AV featurization never launched the log-mel kernel")
+    # the kernel's features against the plain version's on the same waves
+    pairs = align_modalities(scan_glips(root), scan_lip_regions(lip_root), split="train")
+    wave = torch.from_numpy(decode_waveforms([a.path for a, _v in pairs])).to(DEVICE)
+    want = log_mel_reference(wave, True)[:, :80, :AV_INPUT_SIZE].cpu().numpy()
+    max_err = float(np.abs(mels - want).max())
+    ok = mels.shape == want.shape and bool(np.isfinite(mels).all()) and max_err <= KERNEL_TOL
+    log("av-train", f"featurized mels vs plain-version features: max abs err {max_err:.3e} "
+                    f"(tolerance {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the AV featurization disagrees with the plain log-mel")
+
+    cfg = av_config(root, os.path.join(tmp, "run"), seed)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    result = av_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = logmel_cuda.launch_count
+    n_params = sum(p.numel() for p in get_av_model(AV_MODEL, len(WORDS)).parameters())
+    log("av-train", f"pipelines.audio_video.main: {AV_MODEL} (log-mel 80 x {AV_INPUT_SIZE}, MobileNetV3-small "
+                    f"over 29 frames, BiLSTM 256, fc1 37632 -> 512; {n_params} parameters), float32, batch "
+                    f"{AV_BATCH}, lr {AV_LR:g}, {AV_EPOCHS} epochs in {wall:.2f} s (featurization, model build, "
+                    f"training, evaluation, checkpoints); log-mel kernel launches: {launches}")
+    if launches < 1:
+        raise SystemExit("AV training never launched the log-mel kernel")
+    hist = result["history"]
+    for h in hist:
+        log("av-train", f"epoch {h['epoch']}: train {h['train_loss']:.4f}/{h['train_acc']:.2f}% "
+                        f"val {h['val_loss']:.4f}/{h['val_acc']:.2f}% test {h['test_loss']:.4f}/"
+                        f"{h['test_acc']:.2f}% lr {h['lr']:.2e}, {h['seconds']:.3f} s, "
+                        f"{h['clips_per_sec']:.1f} clips/s (train + val + test) | {smi}")
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
+    if len(hist) != AV_EPOCHS or not np.isfinite(losses).all():
+        raise SystemExit(f"AV training gave {len(hist)} epochs, losses {losses}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise SystemExit("the AV train loss did not fall from epoch 1 to the last epoch")
+    best = result.get("best_checkpoint")
+    if not best or not os.path.isfile(best) or not np.isfinite(result.get("final_test_loss", np.nan)):
+        raise SystemExit("no AV best checkpoint, or no final test on it")
+    log("av-train", f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
+                    f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+    test = datasets["test"]
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_BATCH,
+                                                  device=DEVICE)
+    served_acc = 100.0 * float((predictor.predict(*test.inputs) == test.labels).mean())
+    log("av-train", f"served the best checkpoint through Predictor.from_checkpoint: {len(test)} test clips, "
+                    f"accuracy {served_acc:.2f}% (final test {result['final_test_acc']:.2f}%)")
+    if abs(served_acc - result["final_test_acc"]) > 100.0 / len(test) + 1e-9:
+        raise SystemExit("the served AV checkpoint's accuracy differs from the final test's")
+
+    train_ds = datasets["train"]
+    trainer = Trainer(get_av_model(AV_MODEL, len(WORDS)), TrainerConfig(
+        model_name=AV_MODEL, num_classes=len(WORDS), batch_size=AV_BATCH, epochs=1, learning_rate=AV_LR,
+        weight_decay=0.0, scheduler_factor=1.0, seed=seed, host_prefetch=0,
+        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
+        device=DEVICE)
+    trainer.init_state()
+    batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
+    step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
+        torch.cuda.synchronize()
+        n += 1
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(train_ds, rng)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
+    with flop_counter() as counter:
+        trainer.train_step(*batch)
+    flops = counter.get_total_flops()
+    n_kernels = None
+    if by_name:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(*batch)
+            torch.cuda.synchronize()
+        n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False))
+    log("av-train", f"train step (forward + backward + Adam) at B={AV_BATCH} ({AV_BATCH * lips.shape[1]} frames), "
+                    f"float32: {step_ms:.3f} ms (CUDA events, mean of {STEP_ITERS}); {flops / 1e9:.2f} GFLOP of "
+                    f"convolutions and matrix products (torch.utils.flop_counter, grouped weight gradients per "
+                    f"group), {flops / step_ms / 1e9:.3f} TFLOP/s; {n_kernels} device activities (kernels, copies, memsets) in one profiled step | {smi}")
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("av-train", f"device time by kernel over a profiled epoch ({total * 1e3:.2f} ms summed): " + "; ".join(
+        f"{name[:70]} {t * 1e3:.2f} ms ({100 * t / total:.1f} %)" for name, t in top))
+    log("av-train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
+                    f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
+                    f"(mels + uint8 lips: gather, pin, copy, synchronized) | {smi}")
+    log("av-train", "card idle over a training epoch: "
+        + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
+
+    kw = dict(batch_size=AV_BATCH, pipeline="audio_video", model_name=AV_MODEL)
+    card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
+                                               os.path.join(tmp, "parity"), **kw))
+                        for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
+                                              (DEVICE, torch.float64)))
+    rel = np.abs(card / cpu - 1.0)
+    ok = bool(np.all(rel <= PARITY_RTOL))
+    log("av-train", f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
+                    f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
+                    f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
+                    f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
+    if not ok:
+        raise SystemExit("the card's AV training steps disagree with the CPU's")
+    card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, AV_LR, PARITY_STEPS, seed,
+                                          os.path.join(tmp, "drift"), **kw))
+                   for dtype in (torch.float32, torch.float64))
+    rel = np.abs(card / exact - 1.0)
+    ok = bool(np.all(rel <= AV_DRIFT_RTOL))
+    log("av-train", f"first {PARITY_STEPS} steps at the trained lr {AV_LR:g}, dropout 0, same init and batches: "
+                    f"card float32 {card.tolist()} float64 on the card {exact.tolist()} relative {rel.tolist()} "
+                    f"(tolerance {AV_DRIFT_RTOL.tolist()}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's float32 AV training steps at the trained lr stray from float64")
+    return {"cfg": cfg, "best": best, "root": root, "lip_root": lip_root, "datasets": datasets,
+            "final_test_acc": result["final_test_acc"], "launches": featurize_launches + launches,
+            "max_abs_err": max_err}
+
+
+def av_request_breakdown(net: torch.nn.Module, group: list) -> dict:
+    """Milliseconds of each stage of one audio_video request: WAV decode and
+    ``.npy`` load (host clock), then on the card's timeline (CUDA events)
+    the copies to the card (waves and uint8 lips), the log-mel kernel, the
+    forward (the lips scaled to [0, 1] included) and the copy of the logits
+    back; ``device idle`` is the share of the wall time outside those."""
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    names = ("WAV decode", "npy load", "H2D", "log-mel", "forward", "D2H")
+    totals = np.zeros(len(names) + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode(), model_precision(torch.float32):
+        for _ in range(BREAKDOWN_ITERS):
+            t0 = time.perf_counter()
+            waves = decode_waveforms([g[0] for g in group])
+            t1 = time.perf_counter()
+            lips = load_lip_sequences([g[1] for g in group])
+            t2 = time.perf_counter()
+            ev[0].record()
+            wave, x = torch.from_numpy(waves).to(DEVICE), torch.from_numpy(lips).to(DEVICE)
+            ev[1].record()
+            mel = logmel_cuda.log_mel(wave, True)[:, :80, :AV_INPUT_SIZE]
+            ev[2].record()
+            logits = net(mel, x.to(torch.float32) / 255.0)
+            ev[3].record()
+            logits.cpu()
+            ev[4].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            device = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+            totals += [(t1 - t0) * 1e3, (t2 - t1) * 1e3, *device, 100.0 * (1.0 - sum(device) / (wall * 1e3))]
+    out = dict(zip(names, totals[:-1] / BREAKDOWN_ITERS))
+    return {**out, "device idle %": totals[-1] / BREAKDOWN_ITERS}
+
+
+def phase_av_serve(av: dict, device_info: dict) -> int:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import align_modalities, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    smi, cfg, best = device_info["smi"], av["cfg"], av["best"]
+    pairs = align_modalities(scan_glips(av["root"]), scan_lip_regions(av["lip_root"]), split="test")
+    groups = [[a.path, v.path] for a, v in pairs]
+    labels = av["datasets"]["test"].labels
+    requests = [groups[i : i + AV_REQUEST] for i in range(0, len(groups), AV_REQUEST)]
+    serving.predict_clips(cfg, best, "audio_video", requests[0], AV_REQUEST, device=DEVICE)  # warm-up
+    logmel_cuda.launch_count = 0
+    through_api = []
+    for i, req in enumerate(requests):
+        before = logmel_cuda.launch_count
+        t0 = time.perf_counter()
+        res = serving.predict_clips(cfg, best, "audio_video", req, AV_REQUEST, device=DEVICE)
+        dt = time.perf_counter() - t0
+        if logmel_cuda.launch_count <= before:
+            raise SystemExit(f"predict_clips request {i} did not launch the log-mel kernel")
+        through_api += [r["logits"] for r in res]
+        if i < 2:
+            log("av-serve", f"predict_clips(pipeline='audio_video') request {i}: {len(req)} wav,npy groups, "
+                            f"{dt * 1e3:.2f} ms incl. model build + checkpoint load + decode + log-mel + .npy load "
+                            f"| {smi}")
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_REQUEST,
+                                                  device=DEVICE)
+
+    def resident_request(req):
+        return predictor.predict_logits(*serving._featurize_modalities("audio_video", cfg, req, device=DEVICE))
+
+    resident_request(requests[0])  # warm-up
+    resident, total_s = [], 0.0
+    for i, req in enumerate(requests):
+        before = logmel_cuda.launch_count
+        t0 = time.perf_counter()
+        resident.append(resident_request(req))
+        total_s += time.perf_counter() - t0
+        if logmel_cuda.launch_count <= before:
+            raise SystemExit(f"resident request {i} did not launch the log-mel kernel")
+    resident = np.concatenate(resident)
+    launches = logmel_cuda.launch_count
+    log("av-serve", f"resident Predictor: {len(groups)} clips in {len(requests)} requests of {AV_REQUEST}, "
+                    f"{total_s * 1e3:.2f} ms, {total_s / len(requests) * 1e3:.3f} ms per request, "
+                    f"{len(groups) / total_s:.1f} clips/s (WAV decode + log-mel kernel + .npy load + H2D + "
+                    f"{AV_MODEL} + D2H); log-mel kernel launches while serving: {launches} | {smi}")
+    stages = av_request_breakdown(predictor.model, requests[0])
+    log("av-serve", f"one request of {len(requests[0])} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
+        f"{k} {v:.3f}" + ("" if k.endswith("%") else " ms") for k, v in stages.items()) + f" | {smi}")
+    accuracy = 100.0 * float((resident.argmax(-1) == labels).mean())
+    log("av-serve", f"served accuracy on the {len(groups)} test clips {accuracy:.2f}% "
+                    f"(final test {av['final_test_acc']:.2f}%)")
+    if abs(accuracy - av["final_test_acc"]) > 100.0 / len(groups) + 1e-9:
+        raise SystemExit("the served AV checkpoint's accuracy differs from the final test's")
+
+    # the same weights on plain-version features on the card, and on the CPU
+    waves = torch.from_numpy(decode_waveforms([g[0] for g in groups])).to(DEVICE)
+    lips = load_lip_sequences([g[1] for g in groups])
+    plain = log_mel_reference(waves, True)[:, :80, :AV_INPUT_SIZE].cpu().numpy()
+    ref_plain = predictor.predict_logits(plain, lips)
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_REQUEST, device="cpu")
+    with model_precision(torch.float32):
+        ref_cpu = cpu.predict_logits(plain, lips)
+    spread = float(np.ptp(ref_cpu, axis=0).max())
+    log("av-serve", f"CPU logits: scale {float(np.abs(ref_cpu).max()):.3f}, largest spread across clips {spread:.3f}")
+    if not spread >= 10 * LOGITS_TOL:
+        raise SystemExit("the AV logits barely depend on the input: the comparisons below could not fail")
+    for name, logits in (("predict_clips", np.asarray(through_api)), ("resident", resident)):
+        if logits.shape != (len(groups), len(WORDS)) or not np.isfinite(logits).all():
+            raise SystemExit(f"{name}: AV logits of shape {logits.shape}, finite={np.isfinite(logits).all()}")
+        for ref_name, ref in (("plain-version features on the card", ref_plain), ("the CPU", ref_cpu)):
+            err = float(np.abs(logits - ref).max())
+            ok = np.allclose(logits, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+            log("av-serve", f"{name} card logits vs the same weights on {ref_name}: max abs err {err:.3e} "
+                            f"(tolerance {LOGITS_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name}: the card's AV logits disagree with {ref_name}")
+    return launches
+
+
+def zoo_trainer(name: str, model: torch.nn.Module, batch: int, tmp: str, seed: int):
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(model, TrainerConfig(
+        model_name=name, num_classes=len(WORDS), batch_size=batch, learning_rate=1e-4, seed=seed, host_prefetch=0,
+        metrics_dir=os.path.join(tmp, "zoo", name, "m"), checkpoints_dir=os.path.join(tmp, "zoo", name, "c")),
+        device=DEVICE)
+    trainer.init_state()
+    return trainer
+
+
+def zoo_step(trainer, inputs: tuple, labels: np.ndarray) -> dict:
+    """One forward + backward + Adam step on the card (finite loss), the
+    mean step time over ``ZOO_ITERS`` more, and the eval logits on the first
+    ``ZOO_CPU_ROWS`` rows against a copy of the same weights on the CPU."""
+    import copy
+
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    xs = tuple(torch.from_numpy(x).to(DEVICE) for x in inputs)
+    y = torch.from_numpy(labels.astype(np.int64)).to(DEVICE)
+    w = torch.ones(len(labels), device=DEVICE)
+    loss_sum, _c, _n, wsum = trainer.train_step(xs, y, w).tolist()
+    step_ms = cuda_ms(lambda: trainer.train_step(xs, y, w), warmup=1, iters=ZOO_ITERS)
+    model = trainer.model.eval()
+    rows = tuple(trainer._prepare(x[:ZOO_CPU_ROWS]) for x in xs)
+    with torch.no_grad(), model_precision(torch.float32):
+        card = model(*rows).float().cpu().numpy()
+        cpu = copy.deepcopy(model).cpu()(*(x.cpu() for x in rows)).float().numpy()
+    err = float(np.abs(card - cpu).max())
+    ok = bool(np.isfinite(loss_sum) and np.isfinite(card).all()) and np.allclose(card, cpu, rtol=LOGITS_TOL,
+                                                                                   atol=LOGITS_TOL)
+    return {"loss": loss_sum / wsum, "step_ms": step_ms, "err": err, "ok": ok,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str) -> None:
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.models.audio import get_audio_model
+    from multimodal_lipread_torch.models.audio_video import get_av_model
+    from multimodal_lipread_torch.models.video import get_video_model
+    from multimodal_lipread_torch.pipelines.common import load_pretrained_backbones
+    from multimodal_lipread_torch.train.checkpoint import load_checkpoint
+
+    smi = device_info["smi"]
+    mels, lips = av["datasets"]["train"].inputs
+    labels = av["datasets"]["train"].labels
+    av_in, audio_in, video_in = ((mels[:AV_BATCH], lips[:AV_BATCH]), (mels[:ZOO_AUDIO_BATCH],),
+                                 (lips[:ZOO_VIDEO_BATCH],))
+
+    # model.pretrained on the card: [video-train]'s resnet into early_fusion_resnet
+    grafted = zoo_trainer("early_fusion_resnet", get_av_model("early_fusion_resnet", len(WORDS)), AV_BATCH, tmp, seed)
+    spec = {"arch": "checkpoint", "path": video_best, "source_submodule": ["resnet"],
+            "submodule": ["video_encoder", "cnn"]}
+    count = load_pretrained_backbones(grafted, Config.from_dict({"model": {"pretrained": [spec]}}))
+    source = {k[len("resnet."):]: v for coll in ("params", "batch_stats")
+              for k, v in load_checkpoint(video_best)["state"][coll].items() if k.startswith("resnet.")}
+    got = {k: v.cpu() for k, v in grafted.model.video_encoder.cnn.state_dict().items()}
+    equal = sorted(got) == sorted(source) and all(torch.equal(got[k], source[k]) for k in source)
+    log("zoo", f"model.pretrained arch: checkpoint: [video-train]'s best resnet_trans 'resnet' ({len(source)} "
+               f"tensors) grafted into early_fusion_resnet's video_encoder.cnn on the card: {count} backbone, "
+               f"tensors equal the source: {equal}")
+    if count != 1 or not equal:
+        raise SystemExit("the grafted backbone differs from its source checkpoint")
+
+    cases = ([("audio_video", n, lambda n=n: get_av_model(n, len(WORDS)), av_in) for n in ZOO_AV]
+             + [("audio", n, lambda n=n: get_audio_model(n, len(WORDS)), audio_in) for n in ZOO_AUDIO]
+             + [("video", "conformer", lambda: get_video_model("conformer", len(WORDS)), video_in)])
+    bad = []
+    for kind, name, build, inputs in cases:
+        batch = len(inputs[0])
+        trainer = grafted if name == "early_fusion_resnet" else zoo_trainer(f"{kind}_{name}", build(), batch, tmp, seed)
+        r = zoo_step(trainer, inputs, labels[:batch])
+        log("zoo", f"{kind} {name} at B={batch}: {r['params']} parameters, first step loss {r['loss']:.4f}, step "
+                   f"(forward + backward + Adam, float32) {r['step_ms']:.3f} ms (CUDA events, mean of {ZOO_ITERS}); "
+                   f"eval logits vs the CPU on {ZOO_CPU_ROWS} rows: max abs err {r['err']:.3e} (tolerance "
+                   f"{LOGITS_TOL:g}) {'ok' if r['ok'] else 'FAIL'} | {smi}")
+        if not r["ok"]:
+            bad.append(f"{kind} {name}")
+        del trainer
+    if bad:
+        raise SystemExit(f"[zoo] a non-finite loss, or card logits that disagree with the CPU, for {bad}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -913,6 +1357,10 @@ def main(argv=None) -> int:
     try:
         video = phase_video_train(args.seed, device_info, tmp)
         phase_video_serve(video, device_info)
+        av = phase_av_train(args.seed, device_info, tmp)
+        launches += av["launches"]
+        launches += phase_av_serve(av, device_info)
+        phase_zoo(args.seed, device_info, av, video["best"], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     row = kernel["rows"][SERVE_BATCH]
@@ -922,12 +1370,13 @@ def main(argv=None) -> int:
         "source": "multimodal_lipread_torch/csrc/logmel.cu",
         "replaces": "multimodal_lipread_tpu/ops/logmel_pallas.py:107",
         "launches": launches,
-        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"]),
+        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"], av["max_abs_err"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
+        "paths": ["serve", "train", "av-train", "av-serve"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -7,12 +7,14 @@ one hand-written kernel, the log-mel frontend (``ops/logmel_cuda.py`` +
 ``csrc/logmel.cu``), is built with plain ``nvcc`` at first use.
 
 Ported so far, trained (``pipelines/``, ``train/trainer.py``) and served
-(``serving.py``): the audio ``vgg_lstm`` pipeline (WAV clips → threaded
-native decode → log-mel on the device → VGG16-BN → 2-layer BiLSTM →
-classifier) and the video-only pipeline with the reference's seven models
-(uint8 lip tensors → frame backbone over every frame → BiLSTM, attention,
-Transformer or temporal convolutions → classifier). See ROADMAP.md for
-what remains.
+(``serving.py``): the audio pipeline with its eight models (WAV clips →
+threaded native decode → log-mel on the device → e.g. VGG16-BN → 2-layer
+BiLSTM → classifier), the video-only pipeline with its eight models (uint8
+lip tensors → frame backbone over every frame → BiLSTM, attention,
+Transformer, conformer or temporal convolutions → classifier), and the
+audio_video fusion pipeline with the reference's seven models (both
+halves, joined clip by clip); ``model.pretrained`` grafts converted
+backbone weights into any of them. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

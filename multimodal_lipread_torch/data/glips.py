@@ -1,6 +1,5 @@
-"""GLips directory scanning (counterpart of the JAX package's
-``data/glips.py``; the cross-modality alignment waits for the fusion
-slices).
+"""GLips directory scanning and the alignment of modalities (counterpart
+of the JAX package's ``data/glips.py``).
 
 Layout: ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.{m4a,wav,flac}``
 and the lip-region mirror tree
@@ -54,6 +53,9 @@ class GlipsIndex:
 
     def by_split(self, split: str) -> List[ClipEntry]:
         return [e for e in self.entries if e.split == split]
+
+    def by_key(self) -> Dict[Tuple[str, str, str], ClipEntry]:
+        return {e.key: e for e in self.entries}
 
 
 def lipread_files_dir(root: str) -> str:
@@ -149,3 +151,16 @@ def scan_lip_regions(lip_root: str, splits: Sequence[str] = SPLITS) -> GlipsInde
     index = GlipsIndex(root=lip_root, classes=sorted(words))
     index.entries = [entries[k] for k in sorted(entries)]
     return index
+
+
+def align_modalities(*indexes: GlipsIndex, split: Optional[str] = None) -> List[Tuple[ClipEntry, ...]]:
+    """Strict N-way alignment of modality indexes by (word, sequence id,
+    split): one tuple of entries, one per index, for every key present in
+    all of them (in ``split`` only, when given), sorted by key."""
+    maps = [ix.by_key() for ix in indexes]
+    common = set(maps[0])
+    for m in maps[1:]:
+        common &= set(m)
+    if split is not None:
+        common = {k for k in common if k[2] == split}
+    return [tuple(m[k] for m in maps) for k in sorted(common)]

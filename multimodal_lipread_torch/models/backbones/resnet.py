@@ -79,14 +79,15 @@ _CONFIGS = {
 
 
 class ResNet(nn.Module):
-    """ResNet backbone over 3-channel NCHW frames."""
+    """ResNet backbone over NCHW images of ``in_channels`` channels (3 for
+    lip frames, 1 for a log-mel image; the Flax module infers it)."""
 
-    def __init__(self, version: int = 18):
+    def __init__(self, version: int = 18, in_channels: int = 3):
         super().__init__()
         if version not in _CONFIGS:
             raise ValueError(f"Invalid ResNet version: {version}")
         block_cls, stage_sizes, self.feature_dim = _CONFIGS[version]
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         self.blocks = []
         c = 64

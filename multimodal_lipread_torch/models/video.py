@@ -3,8 +3,7 @@ package's ``models/video.py``).
 
 Registry names as the JAX package's: ``vgg_lstm``, ``resnet_lstm``,
 ``shufflenet_lstm``, ``mobilenet_lstm``, ``resnet_attn``, ``cnn``,
-``resnet_trans``. ``conformer`` (the JAX package's extension) waits for
-``nn/conformer.py`` (ROADMAP.md, Queue 1 #7).
+``resnet_trans``, and the JAX package's extension ``conformer``.
 
 Input contract, the JAX one: lip sequences (B, T, H, W, C) as float in
 [0, 1] (uint8 is scaled on the device by the trainer or the predictor).
@@ -35,6 +34,7 @@ from multimodal_lipread_torch.nn.attention import (
     TransformerEncoder,
 )
 from multimodal_lipread_torch.nn.common import BatchNorm, Dropout, conv1d, conv2d, linear, time_distributed
+from multimodal_lipread_torch.nn.conformer import ConformerEncoder
 
 
 def _frames(x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +186,24 @@ class CNNOnly(_VideoModel):
         return linear(self.fc, self.dropout(y.mean(dim=2)))
 
 
+class VideoConformer(_VideoModel):
+    """ResNet frames → ``ConformerEncoder`` over time (d_model 144, 4
+    blocks) → mean → Dropout → Linear (the JAX package's extension)."""
+
+    def __init__(self, num_classes: int, resnet_version: int = 18, d_model: int = 144, num_layers: int = 4,
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.resnet = ResNet(resnet_version)
+        self.encoder = ConformerEncoder(self.resnet.feature_dim, d_model, num_layers, dropout_rate=dropout_rate)
+        self.dropout = Dropout(dropout_rate)
+        self.classifier = nn.Linear(d_model, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        enc = self.encoder(self.encode(self.resnet, x))
+        return linear(self.classifier, self.dropout(enc.mean(dim=1)))
+
+
 VIDEO_MODEL_NAMES = (
     "vgg_lstm", "resnet_lstm", "shufflenet_lstm", "mobilenet_lstm",
     "resnet_attn", "cnn", "resnet_trans",
@@ -225,8 +243,5 @@ def get_video_model(
     if name == "resnet_trans":
         return ResNet2DTransformer(num_classes, resnet_version=resnet_version, dropout_rate=opt(0.2), dtype=dtype)
     if name == "conformer":
-        raise NotImplementedError(
-            "video model 'conformer' needs nn/conformer.py, which is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1 #7)"
-        )
+        return VideoConformer(num_classes, resnet_version=resnet_version, dropout_rate=opt(0.1), dtype=dtype)
     raise ValueError(f"Unknown video model: {name}")

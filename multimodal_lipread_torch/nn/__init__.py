@@ -6,4 +6,4 @@ from multimodal_lipread_torch.nn.common import (  # noqa: F401
     adaptive_avg_pool2d,
     flax_init_,
 )
-from multimodal_lipread_torch.nn.recurrent import BiLSTM  # noqa: F401
+from multimodal_lipread_torch.nn.recurrent import LSTM, BiLSTM, LSTMLayer  # noqa: F401

@@ -12,9 +12,10 @@ keeping the best-val checkpoint and running the final test on it. Logs go
 to ``<output.base_dir>/metrics``, checkpoints (``<model>_best.pt``, which
 ``serving.py`` serves) to ``<output.base_dir>/models_trained``.
 
-Not ported yet: ``dataset.streaming: true`` (the grain loader, ROADMAP.md
-Queue 1 #11) and ``model.pretrained`` (Queue 1 #7) raise
-``NotImplementedError``.
+``model.pretrained`` grafts converted backbone weights after the
+initialization (``pipelines/common.load_pretrained_backbones``). Not
+ported yet: ``dataset.streaming: true`` (the grain loader, ROADMAP.md
+Queue 1 #11) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from multimodal_lipread_torch.models.audio import get_audio_model
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
     load_audio_datasets,
+    load_pretrained_backbones,
     maybe_plot,
     model_dtype,
     parse_cli,
@@ -45,10 +47,6 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             "dataset.streaming: true (the grain loader) is not ported to PyTorch yet "
             "(ROADMAP.md, Queue 1 #11)"
         )
-    if cfg.get("model.pretrained"):
-        raise NotImplementedError(
-            "model.pretrained (backbone grafting) is not ported to PyTorch yet (ROADMAP.md, Queue 1 #7)"
-        )
 
     root_dir = cfg.get("dataset.root_dir")
     num_classes = cfg.get("dataset.num_classes", 4)
@@ -62,9 +60,10 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             f"{len(index.classes)}: {index.classes}"
         )
     model = get_audio_model(
-        model_name, num_classes, version=cfg.get("model.version", 16),
+        model_name, num_classes, input_size=input_size, version=cfg.get("model.version", 16),
         use_batchnorm=cfg.get("model.use_batchnorm", True),
         dtype=model_dtype(cfg),
+        d_model=cfg.get("model.d_model"),  # the conformer's width
     )
     metrics_dir, ckpt_dir = default_dirs(cfg, "audio")
     trainer = Trainer(
@@ -88,6 +87,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         device=device,
     )
     trainer.ensure_initialized()
+    load_pretrained_backbones(trainer, cfg)
     result = trainer.fit(datasets["train"], datasets["val"], datasets["test"], resume=resume)
     maybe_plot(cfg, metrics_dir)
     return result

@@ -1,19 +1,19 @@
 """Shared pipeline plumbing: config → arrays → Trainer (counterpart of the
-JAX package's ``pipelines/common.py``, audio and video parts).
+JAX package's ``pipelines/common.py``: audio, video and audio_video parts,
+and ``model.pretrained`` grafting).
 
 Audio features are computed once, up front, on the device: every split's
 clips are decoded on the host (the threaded native decoder) and featurized
 by the log-mel kernel in chunks of 256 clips. Lip tensors are loaded once
 and kept uint8 on the host; the trainer and the predictor scale them to
-[0, 1] on the device. Pretrained grafting waits for a later slice
-(ROADMAP.md).
+[0, 1] on the device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +127,94 @@ def load_video_datasets(
         labels = np.asarray([class_to_idx[e.word] for e in entries], np.int32)
         datasets[split] = ArrayDataset(inputs=(lips,), labels=labels)
     return datasets, index
+
+
+def _pretrained_converters() -> Dict[str, Any]:
+    from multimodal_lipread_torch.utils import torch_import as ti
+
+    return {
+        "resnet18": lambda p: ti.convert_resnet(p, 18),
+        "resnet34": lambda p: ti.convert_resnet(p, 34),
+        "resnet50": lambda p: ti.convert_resnet(p, 50),
+        "vgg11": lambda p: ti.convert_vgg_bn(p, 11),
+        "vgg13": lambda p: ti.convert_vgg_bn(p, 13),
+        "vgg16": lambda p: ti.convert_vgg_bn(p, 16),
+        "vgg19": lambda p: ti.convert_vgg_bn(p, 19),
+        "mobilenet_v2": ti.convert_mobilenet_v2,
+        "mobilenet_v3_small": ti.convert_mobilenet_v3_small,
+        "shufflenet_v2_x0_5": lambda p: ti.convert_shufflenet_v2(p, 0.5),
+        "shufflenet_v2_x1_0": lambda p: ti.convert_shufflenet_v2(p, 1.0),
+    }
+
+
+def _dotted(path: Any) -> str:
+    """A ``submodule`` path (a list of names, or one dotted string) → a
+    dotted ``state_dict`` prefix."""
+    return ".".join(path) if isinstance(path, (list, tuple)) else str(path or "")
+
+
+def load_pretrained_backbones(trainer: Any, cfg: Config) -> int:
+    """Graft converted weights into an initialized trainer's model; returns
+    the number of backbones grafted.
+
+    ``model.pretrained`` is one mapping or a list of them::
+
+        model:
+          pretrained:
+            - arch: resnet18          # resnet18|resnet34|resnet50|vgg11|vgg13|
+                                      # vgg16|vgg19|mobilenet_v2|mobilenet_v3_small|
+                                      # shufflenet_v2_x0_5|shufflenet_v2_x1_0|
+                                      # checkpoint (one of the port's .pt checkpoints)
+              path: /weights/resnet18.pth   # torch.save(model.state_dict(), ...)
+              submodule: [resnet]           # the backbone's place in the model
+              adapt_1ch: true               # fold conv1's RGB input for mel images
+
+    ``arch: checkpoint`` grafts from one of the port's own trained
+    checkpoints (``train/checkpoint.py``): ``source_submodule: [resnet]``
+    picks that subtree of its ``params`` and ``batch_stats`` (the whole
+    model when left out), e.g. to warm-start a fusion model's
+    ``video_encoder.cnn`` from a video run. An unknown arch, a missing
+    file, or names or shapes that do not match the submodule raise
+    (``ValueError`` naming the keys). The Adam moments are untouched (a
+    fresh trainer has none)."""
+    from multimodal_lipread_torch.train.checkpoint import load_checkpoint
+    from multimodal_lipread_torch.utils import torch_import as ti
+
+    specs = cfg.get("model.pretrained")
+    if not specs:
+        return 0
+    if isinstance(specs, dict):
+        specs = [specs]
+    converters = _pretrained_converters()
+    model = trainer.model
+    state = model.state_dict()
+    for spec in specs:
+        arch = spec.get("arch")
+        if arch != "checkpoint" and arch not in converters:
+            raise ValueError(f"Unknown pretrained arch '{arch}'. Supported: {sorted(converters) + ['checkpoint']}")
+        if "path" not in spec or "submodule" not in spec:
+            raise ValueError(f"model.pretrained entry {spec} needs 'path' and 'submodule'")
+        path = spec["path"]
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"pretrained weights for '{arch}' not found at {path}: save a state dict with "
+                f"torch.save(model.state_dict(), path) on a machine that has the weights"
+            )
+        if arch == "checkpoint":
+            tree = load_checkpoint(path)["state"]
+            source = _dotted(spec.get("source_submodule", ()))
+            prefix = f"{source}." if source else ""
+            converted = {k[len(prefix):]: v for coll in ("params", "batch_stats")
+                         for k, v in tree[coll].items() if k.startswith(prefix)}
+            if not converted:
+                raise ValueError(f"checkpoint {path} has no submodule '{source}'")
+        else:
+            converted = converters[arch](path)
+            if spec.get("adapt_1ch"):
+                converted = ti.adapt_first_conv_to_1ch(converted)
+        state = ti.graft_backbone(state, converted, _dotted(spec["submodule"]))
+    model.load_state_dict(state, strict=True)
+    return len(specs)
 
 
 def parse_cli(default_config: Optional[str] = None, argv: Optional[Sequence[str]] = None) -> Config:

@@ -16,9 +16,11 @@ checkpoints in the reference's format. Logs go to
 checkpoints (``<model>_best.pt``, which ``serving.py`` serves) to
 ``<output.base_dir>/models_trained``.
 
-Not ported yet: ``dataset.streaming`` (ROADMAP.md Queue 1 #11),
-``dataset.device_crop`` (#8.5), ``dataset.host_crop_streaming`` (#11) and
-``model.pretrained`` (#7) raise ``NotImplementedError``.
+``model.pretrained`` grafts converted backbone weights after the
+initialization (``pipelines/common.load_pretrained_backbones``). Not
+ported yet: ``dataset.streaming`` (ROADMAP.md Queue 1 #11),
+``dataset.device_crop`` (#8.5) and ``dataset.host_crop_streaming`` (#11)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from multimodal_lipread_torch.data.glips import lip_regions_root, lipread_files_
 from multimodal_lipread_torch.models.video import get_video_model
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
+    load_pretrained_backbones,
     load_video_datasets,
     maybe_plot,
     model_dtype,
@@ -43,7 +46,6 @@ _UNPORTED = (
     ("dataset.streaming", "streaming lip records (the grain loader)", "Queue 1 #11"),
     ("dataset.device_crop", "the crop/resize/pad of full frames on the device", "Queue 1 #8.5"),
     ("dataset.host_crop_streaming", "host decode + crop of full frames per epoch", "Queue 1 #11"),
-    ("model.pretrained", "backbone grafting", "Queue 1 #7"),
 )
 
 
@@ -114,6 +116,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         device=device,
     )
     trainer.ensure_initialized()
+    load_pretrained_backbones(trainer, cfg)
     result = trainer.fit(datasets["train"], datasets["val"], datasets["test"], resume=resume)
     maybe_plot(cfg, metrics_dir)
     if "final_test_acc" in result:  # the reference's test_results.txt

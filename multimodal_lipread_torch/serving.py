@@ -1,5 +1,5 @@
-"""Inference / serving of the audio and video pipelines (counterpart of
-the JAX package's ``serving.py``).
+"""Inference / serving of the audio, video and audio_video pipelines
+(counterpart of the JAX package's ``serving.py``).
 
 - ``Predictor``: a trained model from a checkpoint, in eval mode on one
   device; serves any number of inputs in fixed-size batches, padding the
@@ -10,13 +10,20 @@ the JAX package's ``serving.py``).
   ``ops/logmel_cuda.py``) → classifier.
 - ``predict_clips``: any ported pipeline, per-clip groups of files →
   featurize (``_featurize_modalities``) → classify; for ``video`` the
-  lip-region ``.npy`` files, kept uint8 up to the device.
+  lip-region ``.npy`` files, kept uint8 up to the device; for
+  ``audio_video`` a WAV and a ``.npy`` per clip, the WAV through the host
+  decode and the log-mel kernel on the predictor's device.
 - a CLI: ``python -m multimodal_lipread_torch.serving --pipeline
-  audio|video --config <yaml> --checkpoint <path> <clips...>`` → JSON
-  predictions (WAV files for audio, lip-region ``.npy`` files for video).
+  audio|video|audio_video --config <yaml> --checkpoint <path> <clips...>``
+  → JSON predictions (WAV files for audio, lip-region ``.npy`` files for
+  video, ``clip.wav,clip.npy`` groups for audio_video).
+
+The audio_video features are taken at ``dataset.audio_input_size`` time
+steps, the key its training pipeline reads (the JAX package's serving
+reads ``dataset.input_size`` there; ROADMAP.md Queue 3 notes it).
 
 Not ported yet (ROADMAP.md): data-parallel serving, graph export, the
-five fusion and cue pipelines, ``device_preproc``.
+four cue pipelines, ``device_preproc``.
 """
 
 from __future__ import annotations
@@ -96,9 +103,11 @@ def build_audio_model(config: Any) -> nn.Module:
     input_size = config.get("dataset.input_size", 117)
     model = get_audio_model(
         config.get("model.name", "resnet"), config.get("dataset.num_classes", 4),
+        input_size=input_size,
         version=config.get("model.version", 16),
         use_batchnorm=config.get("model.use_batchnorm", True),
         dtype=model_dtype(config),
+        d_model=config.get("model.d_model"),
     )
     if bool(config.get("dataset.streaming", False)):
         from multimodal_lipread_torch.models.frontend import WaveToLogMel
@@ -150,7 +159,7 @@ def predict_audio_clips(
     ]
 
 
-PIPELINES = ("audio", "video")
+PIPELINES = ("audio", "video", "audio_video")
 # per-pipeline input modalities, in the model's order: 'a' = audio clip
 # path, 'v' = lip-region .npy path, 'c' = cue text file (the JAX package's)
 _PIPELINE_INPUTS = {
@@ -190,17 +199,27 @@ def build_model(pipeline: str, config: Any) -> nn.Module:
             feature_dim=config.get("model.feature_dim"),
             dropout=config.get("model.dropout"),
         )
+    if pipeline == "audio_video":
+        from multimodal_lipread_torch.models.audio_video import get_av_model
+
+        return get_av_model(
+            config.get("model.name", "middle_fusion_mobilenet"), config.get("dataset.num_classes", 4),
+            input_size=config.get("dataset.audio_input_size", 117), dtype=model_dtype(config),
+        )
     if pipeline in _PIPELINE_INPUTS:
         raise _unported(pipeline)
     raise ValueError(f"unknown pipeline '{pipeline}' (one of {tuple(_PIPELINE_INPUTS)})")
 
 
-def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[str]]) -> tuple:
+def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[str]],
+                          device: str = "cuda") -> tuple:
     """Per-clip file groups (one path per modality, in the order of
     ``_PIPELINE_INPUTS``) → the model's input arrays, as the training
-    pipeline featurizes them. Lips are loaded as uint8 (a float file in
-    [0, 1] is scaled to uint8) and scaled to [0, 1] on the device by the
-    predictor. The audio pipeline goes through ``predict_audio_clips``."""
+    pipeline featurizes them. Audio is decoded on the host and featurized
+    by the log-mel kernel on ``device`` at ``dataset.audio_input_size``
+    steps; lips are loaded as uint8 (a float file in [0, 1] is scaled to
+    uint8) and scaled to [0, 1] on the device by the predictor. The audio
+    pipeline goes through ``predict_audio_clips``."""
     if pipeline == "audio":
         raise ValueError("audio uses predict_audio_clips (streaming-aware)")
     if pipeline not in PIPELINES:
@@ -212,10 +231,20 @@ def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[
                 f"pipeline '{pipeline}' needs {len(codes)} files per clip "
                 f"({','.join(codes)}: a=audio, v=lips .npy, c=cue text); got {g}"
             )
-    lips = np.stack([np.load(g[0]) for g in groups])
-    if lips.dtype != np.uint8:
-        lips = np.clip(lips * 255.0 if lips.max() <= 1.0 else lips, 0, 255).astype(np.uint8)
-    return (lips,)
+    inputs: List[np.ndarray] = []
+    for i, code in enumerate(codes):
+        paths = [g[i] for g in groups]
+        if code == "a":
+            from multimodal_lipread_torch.pipelines.common import compute_logmel_features, decode_waveforms
+
+            inputs.append(compute_logmel_features(
+                decode_waveforms(paths), input_size=config.get("dataset.audio_input_size", 117), device=device))
+        else:
+            lips = np.stack([np.load(p) for p in paths])
+            if lips.dtype != np.uint8:
+                lips = np.clip(lips * 255.0 if lips.max() <= 1.0 else lips, 0, 255).astype(np.uint8)
+            inputs.append(lips)
+    return tuple(inputs)
 
 
 def _class_names(config: Any) -> Optional[List[str]]:
@@ -245,7 +274,7 @@ def predict_clips(
     if pipeline == "audio":
         return predict_audio_clips(config, ckpt_path, [g[0] for g in groups], batch_size, device=device)
     model = build_model(pipeline, config)
-    inputs = _featurize_modalities(pipeline, config, groups)
+    inputs = _featurize_modalities(pipeline, config, groups, device=device)
     logits = Predictor.from_checkpoint(model, ckpt_path, batch_size, device=device).predict_logits(*inputs)
     preds = np.argmax(logits, axis=-1)
     classes = _class_names(config)
@@ -267,7 +296,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from multimodal_lipread_torch.config import load_config
 
     parser = argparse.ArgumentParser(
-        description="Serve an audio or video checkpoint of the PyTorch port: classify clips",
+        description="Serve an audio, video or audio_video checkpoint of the PyTorch port: classify clips",
     )
     parser.add_argument("--pipeline", default="audio", choices=PIPELINES)
     parser.add_argument("--config", required=True)
@@ -275,7 +304,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     parser.add_argument("clips", nargs="+",
-                        help="files to classify: WAV clips (audio) or lip-region .npy files (video)")
+                        help="files to classify: WAV clips (audio), lip-region .npy files (video), "
+                             "or comma-separated 'clip.wav,clip.npy' groups (audio_video)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
     results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],

@@ -1,15 +1,18 @@
 """How far float32 training trajectories part, on the card and the CPU,
 from a float64 run of the same steps.
 
-    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video] [--model NAME]
-        [--lrs 5e-4 3e-5 1e-5] [--steps 3] [--seeds 0 ...] [--no-cpu]
+    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video|audio_video]
+        [--model NAME] [--lrs 5e-4 3e-5 1e-5] [--steps 3] [--seeds 0 ...] [--no-cpu]
 
 For each of ``--seeds`` it writes the port's synthetic corpus from the
 seed (4 words) and takes its train split: for ``--pipeline audio`` (the
 default) 68 WAV clips per split, featurized by the log-mel kernel, and the
 model ``vgg_lstm`` (VGG16-BN, BiLSTM 2 x 128) at batch 32; for
 ``--pipeline video`` 32 lip tensors per split, kept uint8, and the model
-``resnet_trans`` (visual_config.yaml's widths) at batch 16. From one
+``resnet_trans`` (visual_config.yaml's widths) at batch 16; for
+``--pipeline audio_video`` 32 aligned clips per split (log-mel by the
+kernel, lips uint8) and the model ``middle_fusion_mobilenet``
+(av_config.yaml's, input 117) at batch 8 without weight decay. From one
 Flax-style initialization from the seed (dropout 0) it takes the first
 ``--steps`` training steps of the full-width model on the same batches: in
 float64 on the card (the reference), in float32 on the card (TF32 off, as
@@ -41,11 +44,21 @@ NUM_CLASSES = 4
 PIPELINES = {
     "audio": dict(model="vgg_lstm", batch=32, weight_decay=1e-4, clips=68, lrs=[5e-4, 3e-5, 1e-5]),
     "video": dict(model="resnet_trans", batch=16, weight_decay=1e-5, clips=32, lrs=[5e-5, 1e-5]),
+    "audio_video": dict(model="middle_fusion_mobilenet", batch=8, weight_decay=0.0, clips=32, lrs=[1e-4, 1e-5]),
 }
 
 
 def build(pipeline: str, model: str, version: int = 16) -> torch.nn.Module:
     """The pipeline's full-width model with dropout 0."""
+    if pipeline == "audio_video":
+        from multimodal_lipread_torch.models.audio_video import get_av_model
+        from multimodal_lipread_torch.nn.common import Dropout
+
+        net = get_av_model(model, NUM_CLASSES)
+        for m in net.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        return net
     if pipeline == "audio":
         from multimodal_lipread_torch.models.audio import VGGWithLSTMClassifier
 
@@ -119,6 +132,11 @@ def train_split(pipeline: str, root: str, seed: int) -> ArrayDataset:
         return common.load_audio_datasets(root, splits=("train",), device="cuda")[0]["train"]
     from multimodal_lipread_torch.data.glips import lip_regions_root
 
+    if pipeline == "audio_video":
+        from multimodal_lipread_torch.pipelines.audio_video import load_av_datasets
+
+        make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_lip_regions=True)
+        return load_av_datasets(root, lip_regions_root(root), splits=("train",), device="cuda")[0]["train"]
     make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_audio=False, with_lip_regions=True)
     return common.load_video_datasets(lip_regions_root(root), splits=("train",))[0]["train"]
 

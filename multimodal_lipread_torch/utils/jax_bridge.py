@@ -20,7 +20,11 @@ The inverse of the JAX package's ``utils/torch_import.py``: it takes
   ``_BN``) maps to the port's ``bn1`` itself;
 - LayerNorm ``scale``/``bias`` (no statistics) → ``weight``/``bias``;
 - LSTM ``l{n}_{fwd,bwd}/{w_ih, w_hh, b_ih, b_hh}`` (D, 4H) →
-  ``{weight_ih, weight_hh, bias_ih, bias_hh}_l{n}[_reverse]`` (4H, D).
+  ``{weight_ih, weight_hh, bias_ih, bias_hh}_l{n}[_reverse]`` (4H, D); a
+  single ``LSTMLayer``'s ``{w_ih, w_hh, b_ih, b_hh}`` at its own scope →
+  ``..._l0``;
+- a bare parameter leaf (the late-fusion models' 0-d ``alpha``) → the
+  tensor under its own name.
 
 Nothing here imports JAX: the caller converts to numpy first.
 """
@@ -38,7 +42,7 @@ _MHA_PROJECTIONS = ("query", "key", "value", "out")
 
 
 def _t(x: Any) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32)))
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))  # keeps a 0-d leaf 0-d
 
 
 def _kernel(k: np.ndarray, name: str) -> np.ndarray:
@@ -54,8 +58,23 @@ def _kernel(k: np.ndarray, name: str) -> np.ndarray:
     return k.T  # Dense (I, O)
 
 
-def _walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor],
-          name: str = "") -> None:
+_LSTM_CELL = {"w_ih", "w_hh", "b_ih", "b_hh"}
+
+
+def _lstm_cell(cell: Mapping[str, Any], prefix: str, suffix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}weight_ih_{suffix}"] = _t(np.asarray(cell["w_ih"]).T)
+    out[f"{prefix}weight_hh_{suffix}"] = _t(np.asarray(cell["w_hh"]).T)
+    out[f"{prefix}bias_ih_{suffix}"] = _t(cell["b_ih"])
+    out[f"{prefix}bias_hh_{suffix}"] = _t(cell["b_hh"])
+
+
+def _walk(p: Any, s: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor], name: str = "") -> None:
+    if not isinstance(p, Mapping):  # a bare parameter
+        out[prefix[:-1]] = _t(p)
+        return
+    if set(p) == _LSTM_CELL:  # LSTMLayer: one direction of one layer
+        _lstm_cell(p, prefix, "l0", out)
+        return
     if set(p) == {"BatchNorm_0"}:  # a BatchNorm wrapped in its own module: one level less
         _walk(p["BatchNorm_0"], s.get("BatchNorm_0", {}), prefix, out, name)
         return
@@ -74,12 +93,7 @@ def _walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str, out: Dict[str
     lstm = {k: _LSTM_KEY.fullmatch(k) for k in p}
     if lstm and all(lstm.values()):
         for key, m in lstm.items():
-            suffix = f"l{m.group(1)}" + ("_reverse" if m.group(2) == "bwd" else "")
-            cell = p[key]
-            out[f"{prefix}weight_ih_{suffix}"] = _t(np.asarray(cell["w_ih"]).T)
-            out[f"{prefix}weight_hh_{suffix}"] = _t(np.asarray(cell["w_hh"]).T)
-            out[f"{prefix}bias_ih_{suffix}"] = _t(cell["b_ih"])
-            out[f"{prefix}bias_hh_{suffix}"] = _t(cell["b_hh"])
+            _lstm_cell(p[key], prefix, f"l{m.group(1)}" + ("_reverse" if m.group(2) == "bwd" else ""), out)
         return
     for key, child in p.items():
         _walk(child, s.get(key, {}), f"{prefix}{key}.", out, key)

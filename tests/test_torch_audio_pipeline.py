@@ -144,7 +144,7 @@ def test_main_fit_learns_and_its_checkpoint_serves(tmp_path):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path):
-    for key, value, item in (("dataset.streaming", True, "#11"), ("model.pretrained", [{"arch": "vgg16"}], "#7")):
+    for key, value, item in (("dataset.streaming", True, "#11"),):
         cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
         cfg.set(key, value)
         with pytest.raises(NotImplementedError, match=item):

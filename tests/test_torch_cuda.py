@@ -2,7 +2,9 @@
 the training and serving paths there: train steps on the card against the
 CPU (audio vgg_lstm and video resnet_trans), the video model's forward and
 the uint8 path of ``Predictor`` against the CPU, the BiLSTM's dropout
-masks, and the native WAV decoder's build.
+masks, the native WAV decoder's build, and the audio_video path (its
+featurization through the log-mel kernel, a full-width train step, and
+``predict_clips`` against the CPU).
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -285,3 +287,69 @@ def test_bilstm_dropout_masks_come_from_the_trainers_generator_on_the_card(cuda_
     c = lstm(x)
     assert torch.equal(torch.cuda.get_rng_state(), state)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.fixture
+def av_corpus(tmp_path):
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+
+    return make_synthetic_glips(str(tmp_path / "GLips_4"), clips_per_split=3, seed=4, with_lip_regions=True)
+
+
+@pytest.mark.cuda
+def test_av_featurization_launches_the_kernel(cuda_device, av_corpus):
+    from multimodal_lipread_torch.data.glips import align_modalities, lip_regions_root, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.pipelines.audio_video import load_av_datasets
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+
+    before = logmel_cuda.launch_count
+    datasets, classes = load_av_datasets(av_corpus, lip_regions_root(av_corpus), device="cuda")
+    assert logmel_cuda.launch_count == before + 3  # one launch per split of 12 clips
+    pairs = align_modalities(scan_glips(av_corpus), scan_lip_regions(lip_regions_root(av_corpus)), split="test")
+    wave = torch.from_numpy(decode_waveforms([a.path for a, _v in pairs])).to(cuda_device)
+    want = log_mel_reference(wave, True)[:, :80, :117].cpu().numpy()
+    mels, lips = datasets["test"].inputs
+    assert mels.shape == (12, 80, 117) and lips.dtype == np.uint8 and len(classes) == 4
+    np.testing.assert_allclose(mels, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_av_train_step_on_the_card_is_finite(cuda_device, tmp_path):
+    # av_config.yaml's middle_fusion_mobilenet at its widths, batch 8
+    from multimodal_lipread_torch.models.audio_video import get_av_model
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    rng = np.random.default_rng(6)
+    ds = ArrayDataset((rng.standard_normal((8, 80, 117)).astype(np.float32), _lips(8, seed=6)),
+                      np.arange(8, dtype=np.int32) % 4)
+    cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=8, learning_rate=1e-4, weight_decay=0.0,
+                        seed=0, metrics_dir=str(tmp_path / "m"), checkpoints_dir=str(tmp_path / "c"))
+    trainer = Trainer(get_av_model("middle_fusion_mobilenet", 4), cfg, device="cuda")
+    trainer.init_state()
+    (batch,) = list(trainer.batches(ds, True, np.random.default_rng(0)))
+    loss_sum, _c, _n, wsum = trainer.train_step(*batch).tolist()
+    assert np.isfinite(loss_sum) and wsum == 8.0
+    assert all(p.device.type == "cuda" and torch.isfinite(p).all() for p in trainer.model.parameters())
+
+
+@pytest.mark.cuda
+def test_predict_clips_audio_video_on_the_card_matches_the_cpu(cuda_device, av_corpus, tmp_path):
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.data.glips import align_modalities, lip_regions_root, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.nn.common import flax_init_
+    from multimodal_lipread_torch.train.checkpoint import module_state, save_checkpoint
+
+    cfg = Config.from_dict({"dataset": {"root_dir": av_corpus, "num_classes": 4, "audio_input_size": 117},
+                            "model": {"name": "middle_fusion_mobilenet"}})
+    model = flax_init_(serving.build_model("audio_video", cfg), torch.Generator().manual_seed(2))
+    ckpt = str(tmp_path / "m.pt")
+    save_checkpoint(ckpt, {"epoch": 1, "state": module_state(model), "val_acc": 0.0})
+    pairs = align_modalities(scan_glips(av_corpus), scan_lip_regions(lip_regions_root(av_corpus)), split="test")
+    groups = [[a.path, v.path] for a, v in pairs]
+    before = logmel_cuda.launch_count
+    card = serving.predict_clips(cfg, ckpt, "audio_video", groups, batch_size=8, device="cuda")
+    assert logmel_cuda.launch_count == before + 1
+    cpu = serving.predict_clips(cfg, ckpt, "audio_video", groups, batch_size=8, device="cpu")
+    np.testing.assert_allclose([r["logits"] for r in card], [r["logits"] for r in cpu], rtol=1e-3, atol=1e-3)
+    assert [r["paths"] for r in card] == groups

@@ -142,12 +142,6 @@ def test_get_audio_model_builds_vgg_lstm():
     assert m.lstm.lstm.hidden_size == 128 and m.lstm.lstm.num_layers == 2
 
 
-@pytest.mark.parametrize("name", [n for n in jaudio.AUDIO_MODEL_NAMES if n != "vgg_lstm"])
-def test_get_audio_model_unported_names_point_at_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        paudio.get_audio_model(name, 4)
-
-
 def test_get_audio_model_unknown_name():
     with pytest.raises(ValueError):
         paudio.get_audio_model("nope", 4)

@@ -260,7 +260,7 @@ def test_main_resumes_exactly_with_lstm_dropout(lip_corpus, tmp_path):
 
 @pytest.mark.parametrize("key, value, item", [
     ("dataset.streaming", True, "#11"), ("dataset.device_crop", True, "#8.5"),
-    ("dataset.host_crop_streaming", True, "#11"), ("model.pretrained", [{"arch": "resnet18"}], "#7"),
+    ("dataset.host_crop_streaming", True, "#11"),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, key, value, item):
     cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
@@ -325,7 +325,7 @@ def test_video_featurization_matches_jax(glips_root, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("pipeline", ["audio_video", "cues", "audio_cues", "cues_video", "audio_cues_video"])
+@pytest.mark.parametrize("pipeline", ["cues", "audio_cues", "cues_video", "audio_cues_video"])
 def test_other_pipelines_point_at_roadmap(pipeline):
     cfg = Config.from_dict({})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

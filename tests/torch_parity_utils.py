@@ -9,6 +9,7 @@ module loads them through ``utils/jax_bridge.py``.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import jax
@@ -34,6 +35,8 @@ def _draw(name: str, shape: tuple, rng: np.random.Generator) -> np.ndarray:
         return 0.1 * rng.standard_normal(shape)
     if name == "var":
         return 1.0 + 0.1 * rng.uniform(size=shape)
+    if name == "alpha":  # the late-fusion models' 0-d mixing weight
+        return rng.uniform(0.2, 0.8, shape)
     raise KeyError(f"no drawing law for leaf '{name}'")
 
 
@@ -60,6 +63,74 @@ def load_bridged(module: torch.nn.Module, variables: dict) -> torch.nn.Module:
     sd = state_dict_from_jax(variables["params"], variables.get("batch_stats", {}))
     module.load_state_dict(sd, strict=True)
     return module.eval()
+
+
+def running_from_jax(tree, prefix=""):
+    """JAX batch_stats → {port running-statistic name: array}."""
+    if "mean" in tree:
+        return {prefix + "running_mean": tree["mean"], prefix + "running_var": tree["var"]}
+    out = {}
+    for key, child in tree.items():
+        out.update(running_from_jax(child, prefix if key == "BatchNorm_0" else f"{prefix}{key}."))
+    return out
+
+
+def train_mode_f64(jmodel_f64, v, pm, *inputs):
+    """Train-mode forward in float64 on both sides (``jax.enable_x64``; the
+    port's module widened in place, its dropout at rate 0): the port's
+    output, the JAX output, and the running statistics each updated."""
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), v)
+        key = jax.random.PRNGKey(0)  # asked for by attention in training; unused with jax_dropout_off
+        out = jax.jit(lambda v, *x: jmodel_f64.apply(v, *x, train=True, mutable=["batch_stats"],
+                                                     rngs={"dropout": key}))(
+            v64, *(x.astype(np.float64) for x in inputs))
+        want = np.asarray(out[0])
+        running = running_from_jax(jax.tree_util.tree_map(np.asarray, out[1].get("batch_stats", {})))
+    pm = no_dropout(pm.double().train())
+    if hasattr(pm, "dtype"):
+        pm.dtype = torch.float64
+    with torch.no_grad():
+        got = pm(*(torch.from_numpy(x).double() for x in inputs)).numpy()
+    ours = {k: t.numpy() for k, t in pm.state_dict().items() if "running_" in k}
+    return got, want, ours, running
+
+
+def assert_running(ours, running, tol=1e-4):
+    assert set(ours) == set(running)
+    for key, t in ours.items():
+        np.testing.assert_allclose(t, running[key], rtol=tol, atol=tol, err_msg=key)
+
+
+@pytest.fixture
+def jax_dropout_off(monkeypatch):
+    """Every ``flax.linen.Dropout`` passes its input through and attention
+    drops no probabilities, for a train-mode comparison of JAX models whose
+    dropout rates are fixed (the port's are set to rate 0 alongside: masks
+    cannot agree across packages)."""
+    import flax.linen
+    from flax.linen import attention
+
+    weights = attention.dot_product_attention_weights
+    signature = inspect.signature(weights)
+
+    def deterministic_weights(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.arguments["deterministic"] = True
+        return weights(*bound.args, **bound.kwargs)
+
+    monkeypatch.setattr(flax.linen.Dropout, "__call__", lambda self, x, *args, **kwargs: x)
+    monkeypatch.setattr(attention, "dot_product_attention_weights", deterministic_weights)
+
+
+def no_dropout(module: torch.nn.Module) -> torch.nn.Module:
+    """Set every port ``Dropout`` of ``module`` to rate 0."""
+    from multimodal_lipread_torch.nn.common import Dropout
+
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return module
 
 
 @pytest.fixture(autouse=True, scope="module")
