@@ -44,9 +44,9 @@ its lines and any failure ending the run with a non-zero exit:
    epoch-3 train loss below epoch 1's, the final test run on the reloaded
    best checkpoint, which then serves through ``Predictor.from_checkpoint``
    with the same accuracy. Then: the train step's time (forward + backward
-   + Adam) at B=32 by CUDA events, training clips/s per epoch, the card's
-   idle share over an epoch (``torch.profiler``), host batching + H2D per
-   step, one epoch at ``model.dtype: bfloat16`` (parameters stay float32,
+   + Adam) at B=32 by CUDA events, its FLOPs and device activities, training
+   clips/s per epoch, the card's idle share over an epoch
+   (``torch.profiler``), host batching + H2D per step, one epoch at ``model.dtype: bfloat16`` (parameters stay float32,
    losses finite), the first 3 training steps on the card against the
    same 3 steps of the port on the CPU at lr 1e-5, and the card's first 3
    steps at the trained lr 5e-4 against a float64 run of them on the card;
@@ -60,8 +60,8 @@ its lines and any failure ending the run with a non-zero exit:
    accuracy) for 3 epochs in float32 from a ``Config.from_dict``: every
    loss finite, the epoch-3 train loss below epoch 1's, the final test on
    the reloaded best checkpoint, which serves with the same accuracy. Then
-   the train step's time at B=16 by CUDA events, training clips/s per
-   epoch, the card's idle share over an epoch, host batching + H2D per
+   the train step's time at B=16 by CUDA events, its FLOPs and device
+   activities, training clips/s per epoch, the card's idle share over an epoch, host batching + H2D per
    step, the first 3 steps on the card against the CPU at lr 1e-5, and the
    card's first 3 float32 steps at the trained lr 5e-5 against a float64
    run of them on the card;
@@ -93,17 +93,60 @@ its lines and any failure ending the run with a non-zero exit:
    load, H2D, log-mel kernel, forward, D2H, card idle), and the card's
    logits against the same weights fed plain-version features on the card
    and against the CPU, to 1e-3;
-10. zoo: ``model.pretrained`` with ``arch: checkpoint`` grafts [video-train]'s
+10. cues-train: the port's synthetic corpus from ``--seed`` with cue
+   descriptions (4 words, 32 clips per split; the emotion records pooled
+   and split 90/10 by ``training.split_seed``: 346 train, 38 val), as
+   ``HashingTokenizer`` ids of length 32 (the repository ships no Hugging
+   Face weights); ``pipelines.cues.main`` trains ``configs/cues_config.yaml``
+   with the overrides ``--set model.name=bert --set model.bert_size=base
+   --set training.learning_rate=5e-5 --set training.epochs=2`` (bert-base
+   widths from a random initialization, batch 8, balanced class weights,
+   ``linear_warmup``, train/val logs only) in float32: every loss finite, the
+   epoch-2 train loss below epoch 1's, the best checkpoint reloaded into a
+   ``Predictor`` classifies the val split with the best val accuracy. Then
+   the train step's time at B=8 by CUDA events, its FLOPs and device
+   activities, training clips/s per epoch, the card's idle share over an
+   epoch, host batching + H2D per step, the first 3 steps on the card
+   against the CPU at lr 1e-5, and the card's first 3 float32 steps at lr
+   5e-5 against a float64 run of them on the card;
+11. cues-serve: the best checkpoint in a resident ``Predictor`` and behind
+   ``serving.predict_clips(pipeline="cues")``, 8 requests of 16 cue ``.txt``
+   files: each request's time, clips/s, a breakdown of one request (read +
+   tokenize, H2D, forward, D2H, card idle), and the card's logits against
+   the same weights on the CPU, to 1e-3;
+12. ac-train: the synthetic corpus from ``--seed`` with audio and cues (4
+   words, 68 clips per split, each split featurized in kernel launches of
+   256 and 16 clips by ``load_audio_cue_datasets``, the mels held to the
+   plain version to 1e-4; hashed mpnet cue embeddings); then, with the
+   kernel's launch count set to 0, ``pipelines.audio_cues.main`` trains
+   ``configs/ac_config.yaml``'s ``middle_fusion_mobile`` (MobileNetV2 over
+   the 1 x 80 x 117 log-mel, the cue through Linear 768 -> 128, one-token
+   4-head self-attention over the 1408-d concat, 256, 4) at batch 32, lr
+   1e-3 with the 2-epoch warmup, plateau (min, 0.5, 3), for 3 epochs in
+   float32, with the checks and measurements of [av-train] (the card's
+   float32 steps held to float64 at lr 1e-3);
+13. ac-serve: requests of 16 ``wav,txt`` groups behind ``predict_clips(
+   pipeline="audio_cues")`` and to a resident ``Predictor``, each of which
+   must launch the log-mel kernel: each request's time, clips/s, a
+   breakdown of one request (WAV decode, log-mel kernel, cue embedding on
+   the host, H2D, forward, D2H, card idle), and the logits against the same
+   weights fed plain-version features on the card and against the CPU, to
+   1e-3;
+14. zoo: ``model.pretrained`` with ``arch: checkpoint`` grafts [video-train]'s
    best ``resnet_trans`` checkpoint's ``resnet`` into ``early_fusion_resnet``'s
    ``video_encoder.cnn`` (the tensors must equal the source); then one
    forward, backward and Adam step at full width on the card for the six
    other AV models (B=8, this one grafted), the seven other audio models
-   (B=32) and the video ``conformer`` (B=16): every loss finite, each step's
-   time, and eval logits against the same weights on the CPU, to 1e-3.
+   (B=32), the video ``conformer`` (B=16), the ten other cue models (B=8 on
+   their embedding kind's features of the [cues-train] records; ``bert_lite``
+   at bert-base width in bf16, its logits held to the same weights in
+   float32 on the CPU at the bf16 bound 5e-2) and the six other audio_cues
+   models (B=32): every loss finite, each step's time, and eval logits
+   against the same weights on the CPU, to 1e-3.
 
-The video phases and [zoo] launch no hand-written kernel. The line before
-the last is ``{"kernels": [...]}``, one entry per kernel, with the paths
-that launch it; the last line is ``{"ok": true, "device": {...}}``.
+The video and cue phases and [zoo] launch no hand-written kernel. The line
+before the last is ``{"kernels": [...]}``, one entry per kernel, with the
+paths that launch it; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -179,10 +222,40 @@ AV_REQUEST = 16
 # H100 (PERF.md)
 AV_DRIFT_SEEDS_MAX = np.array([1.564e-7, 7.830e-7, 9.295e-6])
 AV_DRIFT_RTOL = 2 * AV_DRIFT_SEEDS_MAX
+# [cues-train] / [cues-serve]: cues_config.yaml with bert at bert-base width
+# on the emotion records of 4 words x 32 clips per split, pooled and split
+# 90/10 (346 train: an epoch is 44 steps of 8)
+CUES_CLIPS_PER_SPLIT = 32
+CUES_SET = {"model.name": "bert", "model.bert_size": "base", "training.learning_rate": 5e-5,
+            "training.epochs": 2}
+CUES_BATCH, CUES_REQUEST, CUES_REQUESTS = 8, 16, 8
+# the card's first 3 float32 steps at lr 5e-5 against float64 on the card:
+# per step, twice the largest distance that `train_drift --pipeline cues
+# --lrs 5e-5 --no-cpu --seeds 0 0 1 2 3 4 5 6 7` read on an H100 (PERF.md)
+CUES_DRIFT_SEEDS_MAX = np.array([1.624e-7, 1.890e-6, 3.826e-6])
+CUES_DRIFT_RTOL = 2 * CUES_DRIFT_SEEDS_MAX
+# [ac-train] / [ac-serve]: configs/ac_config.yaml's middle_fusion_mobile on
+# 4 words x 68 clips per split (an epoch is 8 steps of 32 and one of 16)
+AC_MODEL, AC_INPUT_SIZE = "middle_fusion_mobile", 117
+AC_CLIPS_PER_SPLIT = 68
+AC_BATCH, AC_EPOCHS, AC_LR = 32, 3, 1e-3
+AC_REQUEST, AC_REQUESTS = 16, 8
+# the card's first 3 float32 steps at lr 1e-3 (no warmup) against float64
+# on the card: per step, twice the largest distance that `train_drift
+# --pipeline audio_cues --lrs 1e-3 --no-cpu --seeds 0 0 1 2 3 4 5 6 7` read
+# on an H100 (PERF.md)
+AC_DRIFT_SEEDS_MAX = np.array([3.473e-7, 1.417e-3, 1.533e-2])
+AC_DRIFT_RTOL = 2 * AC_DRIFT_SEEDS_MAX
+# bert_lite computes in bf16: its logits against float32 ones
+BF16_LOGITS_TOL = 5e-2
 # [zoo]: one training step of each model the slice ported, at full width
 ZOO_AV = ("early_fusion_resnet", "early_fusion_mobilenet", "late_fusion_mobilenet", "early_fusion_fast",
           "late_fusion_fast", "middle_fusion_fast")
 ZOO_AUDIO = ("resnet", "resnet_lstm", "vgg", "lstm_resnet", "lstm_resnet_attn", "lstm_resnet_trans", "conformer")
+ZOO_CUES = ("dense_nn", "minilm_lstm", "minilm_lstm_attn", "multi_attn", "transformer", "minilm_cnn_lstm",
+            "minilm_cnn_bilstm_attn", "lstm_multi_attn", "linear", "bert_lite")
+ZOO_AC = ("early_fusion_mobile", "late_fusion_mobile", "early_fusion_resnet", "middle_fusion_resnet",
+          "late_fusion_resnet", "test_model")
 ZOO_AUDIO_BATCH, ZOO_VIDEO_BATCH, ZOO_CPU_ROWS, ZOO_ITERS = 32, 16, 4, 5
 
 
@@ -553,6 +626,187 @@ def idle_line(busy_s, prof_s, epoch_s) -> str:
             f"{prof_s * 1e3:.2f} ms)")
 
 
+def train_measures(trainer, train_ds, seed: int) -> dict:
+    """The train step's time (CUDA events, mean of ``STEP_ITERS``), its
+    FLOPs (``flop_counter``) and device activities (one profiled step), host
+    batching + H2D per step (synchronized), one unprofiled epoch's time and
+    the card's busy time over a profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
+    step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
+        torch.cuda.synchronize()
+        n += 1
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(train_ds, rng)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
+    with flop_counter() as counter:
+        trainer.train_step(*batch)
+    activities = None
+    if by_name:  # the profiler sees the card
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(*batch)
+            torch.cuda.synchronize()
+        activities = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False))
+    return {"step_ms": step_ms, "flops": counter.get_total_flops(), "activities": activities, "host_ms": host_ms,
+            "steps": n, "epoch_s": epoch_s, "busy_s": busy_s, "prof_s": prof_s, "by_name": by_name}
+
+
+def log_train_measures(phase: str, m: dict, batch: str, n_clips: int, what: str, smi: str) -> None:
+    tflops = m["flops"] / m["step_ms"] / 1e9
+    log(phase, f"train step (forward + backward + Adam) at {batch}, float32: {m['step_ms']:.3f} ms (CUDA events, "
+               f"mean of {STEP_ITERS}); {m['flops'] / 1e9:.2f} GFLOP of convolutions and matrix products "
+               f"(torch.utils.flop_counter, grouped weight gradients per group), {tflops:.3f} TFLOP/s, "
+               f"{100 * tflops * 1e12 / PEAK_FP32_FLOPS:.1f} % of the fp32 peak; {m['activities']} device activities "
+               f"(kernels, copies, memsets) in one profiled step | {smi}")
+    total = sum(m["by_name"].values())
+    top = sorted(m["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    log(phase, f"device time by kernel over a profiled epoch ({total * 1e3:.2f} ms summed): " + "; ".join(
+        f"{name[:70]} {t * 1e3:.2f} ms ({100 * t / max(total, 1e-12):.1f} %)" for name, t in top))
+    log(phase, f"training epoch ({n_clips} clips, {m['steps']} steps, no evaluation): {m['epoch_s'] * 1e3:.2f} ms, "
+               f"{n_clips / m['epoch_s']:.1f} clips/s | host batching + H2D {m['host_ms']:.3f} ms per step "
+               f"({what}: gather, pin, copy, synchronized) | {smi}")
+    log(phase, "card idle over a training epoch: " + idle_line(m["busy_s"], m["prof_s"], m["epoch_s"]) + f" | {smi}")
+
+
+def check_first_steps(phase: str, train_ds, tmp: str, seed: int, lr: float, drift_rtol: np.ndarray, **kw) -> None:
+    """The card's first ``PARITY_STEPS`` float32 steps against the CPU's at
+    ``PARITY_LR`` (``PARITY_RTOL``), and against float64 on the card at the
+    trained ``lr`` within ``drift_rtol`` per step."""
+    from multimodal_lipread_torch.tools.train_drift import first_steps
+
+    card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
+                                               os.path.join(tmp, "parity"), **kw))
+                        for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
+                                              (DEVICE, torch.float64)))
+    rel = np.abs(card / cpu - 1.0)
+    ok = bool(np.all(rel <= PARITY_RTOL))
+    log(phase, f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
+               f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
+               f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
+               f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
+    if not ok:
+        raise SystemExit(f"[{phase}] the card's training steps disagree with the CPU's")
+    card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, lr, PARITY_STEPS, seed,
+                                          os.path.join(tmp, "drift"), **kw))
+                   for dtype in (torch.float32, torch.float64))
+    rel = np.abs(card / exact - 1.0)
+    ok = bool(np.all(rel <= drift_rtol))
+    log(phase, f"first {PARITY_STEPS} steps at the trained lr {lr:g}, dropout 0, same init and batches: "
+               f"card float32 {card.tolist()} float64 on the card {exact.tolist()} relative {rel.tolist()} "
+               f"(tolerance {drift_rtol.tolist()}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{phase}] the card's float32 training steps at the trained lr stray from float64")
+
+
+def check_logits(phase: str, name: str, logits: np.ndarray, ref: np.ndarray, ref_name: str,
+                 tol: float = LOGITS_TOL) -> None:
+    ok = logits.shape == ref.shape and bool(np.isfinite(logits).all())
+    err = float(np.abs(logits - ref).max()) if ok else float("nan")
+    ok = ok and np.allclose(logits, ref, rtol=tol, atol=tol)
+    log(phase, f"{name} card logits vs the same weights on {ref_name}: max abs err {err:.3e} "
+               f"(tolerance {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{phase}] {name}: the card's logits disagree with {ref_name}")
+
+
+def serve_requests(phase: str, pipeline: str, cfg, best: str, requests: list, batch: int, what: str, smi: str,
+                   api_requests: int = None, kernel: bool = False) -> tuple:
+    """Requests of per-clip file groups, first through ``serving.predict_clips``
+    (model build, checkpoint load, featurization and forward per call; the
+    first ``api_requests`` of them, every one by default), then to a resident
+    ``Predictor`` on ``serving._featurize_modalities``, each after one
+    warm-up request: the calls' times, and the resident requests' time and
+    clips/s. With ``kernel`` every request must launch the log-mel kernel.
+    Returns each path's logits beside the number of clips it was given, the
+    resident predictor and the kernel's launches after the first warm-up."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.ops import logmel_cuda
+
+    def launched(before: int, name: str) -> None:
+        if kernel and logmel_cuda.launch_count <= before:
+            raise SystemExit(f"[{phase}] {name} did not launch the log-mel kernel")
+
+    serving.predict_clips(cfg, best, pipeline, requests[0], batch, device=DEVICE)  # warm-up
+    logmel_cuda.launch_count = 0
+    through_api = []
+    for i, req in enumerate(requests[:api_requests]):
+        before, t0 = logmel_cuda.launch_count, time.perf_counter()
+        res = serving.predict_clips(cfg, best, pipeline, req, batch, device=DEVICE)
+        dt = time.perf_counter() - t0
+        launched(before, f"predict_clips request {i}")
+        through_api += [r["logits"] for r in res]
+        if i < 2:
+            log(phase, f"predict_clips(pipeline={pipeline!r}) request {i}: {len(req)} clips, {dt * 1e3:.2f} ms incl. "
+                       f"model build + checkpoint load + {what} | {smi}")
+    predictor = serving.Predictor.from_checkpoint(serving.build_model(pipeline, cfg), best, batch, device=DEVICE)
+
+    def resident_request(req):
+        return predictor.predict_logits(*serving._featurize_modalities(pipeline, cfg, req, device=DEVICE))
+
+    resident_request(requests[0])  # warm-up
+    resident, total_s = [], 0.0
+    for i, req in enumerate(requests):
+        before, t0 = logmel_cuda.launch_count, time.perf_counter()
+        resident.append(resident_request(req))
+        total_s += time.perf_counter() - t0
+        launched(before, f"resident request {i}")
+    n = sum(len(r) for r in requests)
+    log(phase, f"resident Predictor: {n} clips in {len(requests)} requests of {batch}, {total_s * 1e3:.2f} ms, "
+               f"{total_s / len(requests) * 1e3:.3f} ms per request, {n / total_s:.1f} clips/s ({what} + H2D + "
+               f"forward + D2H)" + (f"; log-mel kernel launches while serving: {logmel_cuda.launch_count}"
+                                    if kernel else "") + f" | {smi}")
+    served = {"predict_clips": (np.asarray(through_api), sum(len(r) for r in requests[:api_requests])),
+              "resident": (np.concatenate(resident), n)}
+    return served, predictor, logmel_cuda.launch_count
+
+
+def log_breakdown(phase: str, stages: dict, clips: int, smi: str) -> None:
+    log(phase, f"one request of {clips} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
+        f"{k} {v:.3f}" + ("" if k.endswith("%") else " ms") for k, v in stages.items()) + f" | {smi}")
+
+
+def check_served(phase: str, served: dict, refs: dict) -> None:
+    """Every served logits array, which must hold one row per clip its path
+    was given, against the same clips' rows of every reference (``refs``
+    holds "the CPU"), once the CPU's logits are shown to depend on the input."""
+    cpu = refs["the CPU"]
+    spread = float(np.ptp(cpu, axis=0).max())
+    log(phase, f"CPU logits: scale {float(np.abs(cpu).max()):.3f}, largest spread across clips {spread:.3f}")
+    if not spread >= 10 * LOGITS_TOL:
+        raise SystemExit(f"[{phase}] the logits barely depend on the input: the comparisons could not fail")
+    for name, (logits, clips) in served.items():
+        if len(logits) != clips:
+            raise SystemExit(f"[{phase}] {name} answered {len(logits)} of the {clips} clips it was given")
+        for ref_name, ref in refs.items():
+            check_logits(phase, name, logits, ref[:clips], ref_name)
+
+
+def check_served_accuracy(phase: str, logits: np.ndarray, labels: np.ndarray, final_test_acc: float) -> None:
+    accuracy = 100.0 * float((logits.argmax(-1) == labels).mean())
+    log(phase, f"served accuracy on the {len(labels)} test clips {accuracy:.2f}% (final test {final_test_acc:.2f}%)")
+    if abs(accuracy - final_test_acc) > 100.0 / len(labels) + 1e-9:
+        raise SystemExit(f"[{phase}] the served checkpoint's accuracy differs from the final test's")
+
+
+def log_epochs(phase: str, hist: list, smi: str) -> None:
+    for h in hist:
+        test = f" test {h['test_loss']:.4f}/{h['test_acc']:.2f}%" if "test_loss" in h else ""
+        log(phase, f"epoch {h['epoch']}: train {h['train_loss']:.4f}/{h['train_acc']:.2f}% "
+                   f"val {h['val_loss']:.4f}/{h['val_acc']:.2f}%{test} lr {h['lr']:.2e}, {h['seconds']:.3f} s, "
+                   f"{h['clips_per_sec']:.1f} clips/s (train + val{' + test' if test else ''}) | {smi}")
+
+
 def phase_train(seed: int, device_info: dict) -> dict:
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.config import Config
@@ -680,28 +934,9 @@ def phase_train(seed: int, device_info: dict) -> dict:
 
         trainer = trainer_for(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION))
         trainer.init_state()
+        log_train_measures("train", train_measures(trainer, train_ds, seed), f"B={TRAIN_BATCH}", len(train_ds),
+                           "mels", smi)
         batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
-        step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
-        torch.cuda.synchronize()
-        t0, n = time.perf_counter(), 0
-        for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
-            torch.cuda.synchronize()
-            n += 1
-        host_ms = (time.perf_counter() - t0) / n * 1e3
-        rng = np.random.default_rng(seed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_epoch(train_ds, rng)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        busy_s, prof_s, _ = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
-        log("train", f"train step (forward + backward + Adam) at B={TRAIN_BATCH}, float32: {step_ms:.3f} ms "
-                     f"(CUDA events, mean of {STEP_ITERS}) | {smi}")
-        log("train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
-                     f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
-                     f"(gather, pin, copy, synchronized) | {smi}")
-        log("train", "card idle over a training epoch: "
-            + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
 
         # one epoch at model.dtype: bfloat16
         bf16 = trainer_for(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION, dtype=torch.bfloat16),
@@ -716,30 +951,8 @@ def phase_train(seed: int, device_info: dict) -> dict:
             raise SystemExit("bfloat16 training changed the parameters' dtype or gave a non-finite loss")
 
         # the card's first steps against the CPU's, and a float64 run on the card
-        from multimodal_lipread_torch.tools.train_drift import first_steps
-
-        card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
-                                                   os.path.join(tmp, "parity"), TRAIN_BATCH, VGG_VERSION))
-                            for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
-                                                  (DEVICE, torch.float64)))
-        rel = np.abs(card / cpu - 1.0)
-        ok = bool(np.all(rel <= PARITY_RTOL))
-        log("train", f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
-                     f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
-                     f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
-                     f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
-        if not ok:
-            raise SystemExit("the card's training steps disagree with the CPU's")
-        card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, TRAIN_LR, PARITY_STEPS, seed,
-                                              os.path.join(tmp, "drift"), TRAIN_BATCH, VGG_VERSION))
-                       for dtype in (torch.float32, torch.float64))
-        rel = np.abs(card / exact - 1.0)
-        ok = bool(np.all(rel <= DRIFT_RTOL))
-        log("train", f"first {PARITY_STEPS} steps at the trained lr {TRAIN_LR:g}, dropout 0, same init and batches: "
-                     f"card float32 {card.tolist()} float64 on the card {exact.tolist()} relative {rel.tolist()} "
-                     f"(tolerance {DRIFT_RTOL.tolist()}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("the card's float32 training steps at the trained lr stray from float64")
+        check_first_steps("train", train_ds, tmp, seed, TRAIN_LR, DRIFT_RTOL, batch_size=TRAIN_BATCH,
+                          version=VGG_VERSION)
         return {"launches": launches, "max_abs_err": max_err, "row256": row256}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -765,7 +978,6 @@ def phase_video_train(seed: int, device_info: dict, tmp: str) -> dict:
     from multimodal_lipread_torch.models.video import get_video_model
     from multimodal_lipread_torch.pipelines import video as video_pipeline
     from multimodal_lipread_torch.pipelines.common import load_video_datasets
-    from multimodal_lipread_torch.tools.train_drift import first_steps
     from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
     smi = device_info["smi"]
@@ -811,73 +1023,17 @@ def phase_video_train(seed: int, device_info: dict, tmp: str) -> dict:
                        f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
 
     train_ds = datasets["train"]
-
-    def trainer_for(device=DEVICE, lr=VIDEO_LR, name="resnet_trans"):
-        return Trainer(get_video_model("resnet_trans", len(WORDS)), TrainerConfig(
-            model_name=name, num_classes=len(WORDS), batch_size=VIDEO_BATCH, epochs=1, learning_rate=lr,
-            weight_decay=VIDEO_WD, seed=seed, host_prefetch=0, scheduler_mode="max",
-            metrics_dir=os.path.join(tmp, name, device, "metrics"),
-            checkpoints_dir=os.path.join(tmp, name, device, "models_trained")), device=device)
-
-    trainer = trainer_for()
+    trainer = Trainer(get_video_model("resnet_trans", len(WORDS)), TrainerConfig(
+        model_name="resnet_trans", num_classes=len(WORDS), batch_size=VIDEO_BATCH, epochs=1, learning_rate=VIDEO_LR,
+        weight_decay=VIDEO_WD, seed=seed, host_prefetch=0, scheduler_mode="max",
+        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
+        device=DEVICE)
     trainer.init_state()
-    batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
-    step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
-    torch.cuda.synchronize()
-    t0, n = time.perf_counter(), 0
-    for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
-        torch.cuda.synchronize()
-        n += 1
-    host_ms = (time.perf_counter() - t0) / n * 1e3
-    rng = np.random.default_rng(seed)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.train_epoch(train_ds, rng)
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
-    with flop_counter() as counter:
-        trainer.train_step(*batch)
-    flops = counter.get_total_flops()
-    frames = VIDEO_BATCH * lips.shape[1]
-    log("video-train", f"train step (forward + backward + Adam) at B={VIDEO_BATCH} ({frames} frames), float32: "
-                       f"{step_ms:.3f} ms (CUDA events, mean of {STEP_ITERS}); {flops / 1e9:.1f} GFLOP of "
-                       f"convolutions and matrix products (torch.utils.flop_counter), "
-                       f"{flops / step_ms / 1e9:.2f} TFLOP/s, {100 * flops / step_ms * 1e3 / PEAK_FP32_FLOPS:.1f} % "
-                       f"of the fp32 peak | {smi}")
-    total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("video-train", f"device time by kernel over a profiled epoch ({total * 1e3:.2f} ms summed): " + "; ".join(
-        f"{name[:70]} {t * 1e3:.2f} ms ({100 * t / total:.1f} %)" for name, t in top))
-    log("video-train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
-                       f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
-                       f"(uint8 gather, pin, copy, synchronized) | {smi}")
-    log("video-train", "card idle over a training epoch: "
-        + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
-
-    kw = dict(batch_size=VIDEO_BATCH, pipeline="video", model_name="resnet_trans")
-    card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
-                                               os.path.join(tmp, "parity"), **kw))
-                        for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
-                                              (DEVICE, torch.float64)))
-    rel = np.abs(card / cpu - 1.0)
-    ok = bool(np.all(rel <= PARITY_RTOL))
-    log("video-train", f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
-                       f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
-                       f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
-                       f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
-    if not ok:
-        raise SystemExit("the card's video training steps disagree with the CPU's")
-    card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, VIDEO_LR, PARITY_STEPS, seed,
-                                          os.path.join(tmp, "drift"), **kw))
-                   for dtype in (torch.float32, torch.float64))
-    rel = np.abs(card / exact - 1.0)
-    ok = bool(np.all(rel <= VIDEO_DRIFT_RTOL))
-    log("video-train", f"first {PARITY_STEPS} steps at the trained lr {VIDEO_LR:g}, dropout 0, same init and "
-                       f"batches: card float32 {card.tolist()} float64 on the card {exact.tolist()} relative "
-                       f"{rel.tolist()} (tolerance {VIDEO_DRIFT_RTOL.tolist()}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("the card's float32 video training steps at the trained lr stray from float64")
+    log_train_measures("video-train", train_measures(trainer, train_ds, seed),
+                       f"B={VIDEO_BATCH} ({VIDEO_BATCH * lips.shape[1]} frames)", len(train_ds), "uint8 lips", smi)
+    del trainer
+    check_first_steps("video-train", train_ds, tmp, seed, VIDEO_LR, VIDEO_DRIFT_RTOL, batch_size=VIDEO_BATCH,
+                      pipeline="video", model_name="resnet_trans")
     return {"cfg": cfg, "best": best, "index": index, "final_test_acc": result["final_test_acc"]}
 
 
@@ -918,54 +1074,17 @@ def phase_video_serve(video: dict, device_info: dict) -> None:
 
     smi, cfg, best, index = device_info["smi"], video["cfg"], video["best"], video["index"]
     test = index.by_split("test")
-    paths = [e.path for e in test]
-    labels = np.asarray([index.class_to_idx[e.word] for e in test])
-    requests = [paths[i : i + VIDEO_BATCH] for i in range(0, len(paths), VIDEO_BATCH)]
-    serving.predict_clips(cfg, best, "video", [[p] for p in requests[0]], VIDEO_BATCH, device=DEVICE)  # warm-up
-    through_api = []
-    for i, req in enumerate(requests):
-        t0 = time.perf_counter()
-        res = serving.predict_clips(cfg, best, "video", [[p] for p in req], VIDEO_BATCH, device=DEVICE)
-        dt = time.perf_counter() - t0
-        through_api += [r["logits"] for r in res]
-        if i < 2:
-            log("video-serve", f"predict_clips(pipeline='video') request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
-                               f"incl. model build + checkpoint load + .npy load | {smi}")
-    predictor = serving.Predictor.from_checkpoint(serving.build_model("video", cfg), best, VIDEO_BATCH, device=DEVICE)
-    predictor.predict_logits(load_lip_sequences(requests[0]))  # warm-up
-    resident, total_s = [], 0.0
-    for req in requests:
-        t0 = time.perf_counter()
-        resident.append(predictor.predict_logits(load_lip_sequences(req)))
-        total_s += time.perf_counter() - t0
-    resident = np.concatenate(resident)
-    log("video-serve", f"resident Predictor: {len(paths)} clips in {len(requests)} requests of {VIDEO_BATCH}, "
-                       f"{total_s * 1e3:.2f} ms, {total_s / len(requests) * 1e3:.3f} ms per request, "
-                       f"{len(paths) / total_s:.1f} clips/s (.npy load + uint8 H2D + resnet_trans + D2H) | {smi}")
-    stages = video_request_breakdown(predictor.model, requests[0])
-    log("video-serve", f"one request of {len(requests[0])} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
-        f"{k} {v:.3f}" + ("" if k.endswith("%") else " ms") for k, v in stages.items()) + f" | {smi}")
-
-    accuracy = 100.0 * float((resident.argmax(-1) == labels).mean())
-    log("video-serve", f"served accuracy on the {len(paths)} test clips {accuracy:.2f}% "
-                       f"(final test {video['final_test_acc']:.2f}%)")
-    if abs(accuracy - video["final_test_acc"]) > 100.0 / len(paths) + 1e-9:
-        raise SystemExit("the served video checkpoint's accuracy differs from the final test's")
+    groups = [[e.path] for e in test]
+    requests = [groups[i : i + VIDEO_BATCH] for i in range(0, len(groups), VIDEO_BATCH)]
+    served, predictor, _ = serve_requests("video-serve", "video", cfg, best, requests, VIDEO_BATCH,
+                                                         ".npy load", smi)
+    log_breakdown("video-serve", video_request_breakdown(predictor.model, [g[0] for g in requests[0]]),
+                  len(requests[0]), smi)
+    check_served_accuracy("video-serve", served["resident"][0],
+                          np.asarray([index.class_to_idx[e.word] for e in test]), video["final_test_acc"])
     cpu = serving.Predictor.from_checkpoint(serving.build_model("video", cfg), best, VIDEO_BATCH, device="cpu")
-    ref = cpu.predict_logits(load_lip_sequences(paths))
-    spread = float(np.ptp(ref, axis=0).max())
-    log("video-serve", f"CPU logits: scale {float(np.abs(ref).max()):.3f}, largest spread across clips {spread:.3f}")
-    if not spread >= 10 * LOGITS_TOL:
-        raise SystemExit("the video logits barely depend on the input: the comparison below could not fail")
-    for name, logits in (("predict_clips", np.asarray(through_api)), ("resident", resident)):
-        if logits.shape != (len(paths), len(WORDS)) or not np.isfinite(logits).all():
-            raise SystemExit(f"{name}: video logits of shape {logits.shape}, finite={np.isfinite(logits).all()}")
-        err = float(np.abs(logits - ref).max())
-        ok = np.allclose(logits, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL)
-        log("video-serve", f"{name} card logits vs the same weights on the CPU: max abs err {err:.3e} "
-                           f"(tolerance {LOGITS_TOL:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"{name}: the card's video logits disagree with the CPU's")
+    ref = cpu.predict_logits(load_lip_sequences([g[0] for g in groups]))
+    check_served("video-serve", served, {"the CPU": ref})
 
 
 def av_config(root: str, base: str, seed: int, **model) -> "Config":
@@ -989,7 +1108,6 @@ def phase_av_train(seed: int, device_info: dict, tmp: str) -> dict:
     from multimodal_lipread_torch.ops.logmel import log_mel_reference
     from multimodal_lipread_torch.pipelines import audio_video as av_pipeline
     from multimodal_lipread_torch.pipelines.common import decode_waveforms
-    from multimodal_lipread_torch.tools.train_drift import first_steps
     from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
     smi = device_info["smi"]
@@ -1066,71 +1184,11 @@ def phase_av_train(seed: int, device_info: dict, tmp: str) -> dict:
         metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
         device=DEVICE)
     trainer.init_state()
-    batch = next(trainer.batches(train_ds, True, np.random.default_rng(seed)))
-    step_ms = cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)
-    torch.cuda.synchronize()
-    t0, n = time.perf_counter(), 0
-    for _ in trainer.batches(train_ds, True, np.random.default_rng(seed)):
-        torch.cuda.synchronize()
-        n += 1
-    host_ms = (time.perf_counter() - t0) / n * 1e3
-    rng = np.random.default_rng(seed)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.train_epoch(train_ds, rng)
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    busy_s, prof_s, by_name = device_busy_s(lambda: trainer.train_epoch(train_ds, rng))
-    with flop_counter() as counter:
-        trainer.train_step(*batch)
-    flops = counter.get_total_flops()
-    n_kernels = None
-    if by_name:
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trainer.train_step(*batch)
-            torch.cuda.synchronize()
-        n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False))
-    log("av-train", f"train step (forward + backward + Adam) at B={AV_BATCH} ({AV_BATCH * lips.shape[1]} frames), "
-                    f"float32: {step_ms:.3f} ms (CUDA events, mean of {STEP_ITERS}); {flops / 1e9:.2f} GFLOP of "
-                    f"convolutions and matrix products (torch.utils.flop_counter, grouped weight gradients per "
-                    f"group), {flops / step_ms / 1e9:.3f} TFLOP/s; {n_kernels} device activities (kernels, copies, memsets) in one profiled step | {smi}")
-    total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("av-train", f"device time by kernel over a profiled epoch ({total * 1e3:.2f} ms summed): " + "; ".join(
-        f"{name[:70]} {t * 1e3:.2f} ms ({100 * t / total:.1f} %)" for name, t in top))
-    log("av-train", f"training epoch ({len(train_ds)} clips, {n} steps, no evaluation): {epoch_s * 1e3:.2f} ms, "
-                    f"{len(train_ds) / epoch_s:.1f} clips/s | host batching + H2D {host_ms:.3f} ms per step "
-                    f"(mels + uint8 lips: gather, pin, copy, synchronized) | {smi}")
-    log("av-train", "card idle over a training epoch: "
-        + idle_line(busy_s, prof_s, epoch_s) + f" | {smi}")
-
-    kw = dict(batch_size=AV_BATCH, pipeline="audio_video", model_name=AV_MODEL)
-    card, cpu, exact = (np.asarray(first_steps(train_ds, device, dtype, PARITY_LR, PARITY_STEPS, seed,
-                                               os.path.join(tmp, "parity"), **kw))
-                        for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
-                                              (DEVICE, torch.float64)))
-    rel = np.abs(card / cpu - 1.0)
-    ok = bool(np.all(rel <= PARITY_RTOL))
-    log("av-train", f"first {PARITY_STEPS} steps at lr {PARITY_LR:g}, dropout 0, same init and batches, "
-                    f"float32: card {card.tolist()} cpu {cpu.tolist()} relative {rel.tolist()} "
-                    f"(tolerance {PARITY_RTOL:g}) {'ok' if ok else 'FAIL'}; against float64 on the card "
-                    f"(diagnostic): card {np.abs(card / exact - 1).tolist()} cpu {np.abs(cpu / exact - 1).tolist()}")
-    if not ok:
-        raise SystemExit("the card's AV training steps disagree with the CPU's")
-    card, exact = (np.asarray(first_steps(train_ds, DEVICE, dtype, AV_LR, PARITY_STEPS, seed,
-                                          os.path.join(tmp, "drift"), **kw))
-                   for dtype in (torch.float32, torch.float64))
-    rel = np.abs(card / exact - 1.0)
-    ok = bool(np.all(rel <= AV_DRIFT_RTOL))
-    log("av-train", f"first {PARITY_STEPS} steps at the trained lr {AV_LR:g}, dropout 0, same init and batches: "
-                    f"card float32 {card.tolist()} float64 on the card {exact.tolist()} relative {rel.tolist()} "
-                    f"(tolerance {AV_DRIFT_RTOL.tolist()}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("the card's float32 AV training steps at the trained lr stray from float64")
+    log_train_measures("av-train", train_measures(trainer, train_ds, seed),
+                       f"B={AV_BATCH} ({AV_BATCH * lips.shape[1]} frames)", len(train_ds), "mels + uint8 lips", smi)
+    del trainer
+    check_first_steps("av-train", train_ds, tmp, seed, AV_LR, AV_DRIFT_RTOL, batch_size=AV_BATCH,
+                      pipeline="audio_video", model_name=AV_MODEL)
     return {"cfg": cfg, "best": best, "root": root, "lip_root": lip_root, "datasets": datasets,
             "final_test_acc": result["final_test_acc"], "launches": featurize_launches + launches,
             "max_abs_err": max_err}
@@ -1176,7 +1234,6 @@ def av_request_breakdown(net: torch.nn.Module, group: list) -> dict:
 def phase_av_serve(av: dict, device_info: dict) -> int:
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.data.glips import align_modalities, scan_glips, scan_lip_regions
-    from multimodal_lipread_torch.ops import logmel_cuda
     from multimodal_lipread_torch.ops.logmel import log_mel_reference
     from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
     from multimodal_lipread_torch.utils.precision import model_precision
@@ -1184,76 +1241,445 @@ def phase_av_serve(av: dict, device_info: dict) -> int:
     smi, cfg, best = device_info["smi"], av["cfg"], av["best"]
     pairs = align_modalities(scan_glips(av["root"]), scan_lip_regions(av["lip_root"]), split="test")
     groups = [[a.path, v.path] for a, v in pairs]
-    labels = av["datasets"]["test"].labels
     requests = [groups[i : i + AV_REQUEST] for i in range(0, len(groups), AV_REQUEST)]
-    serving.predict_clips(cfg, best, "audio_video", requests[0], AV_REQUEST, device=DEVICE)  # warm-up
-    logmel_cuda.launch_count = 0
-    through_api = []
-    for i, req in enumerate(requests):
-        before = logmel_cuda.launch_count
-        t0 = time.perf_counter()
-        res = serving.predict_clips(cfg, best, "audio_video", req, AV_REQUEST, device=DEVICE)
-        dt = time.perf_counter() - t0
-        if logmel_cuda.launch_count <= before:
-            raise SystemExit(f"predict_clips request {i} did not launch the log-mel kernel")
-        through_api += [r["logits"] for r in res]
-        if i < 2:
-            log("av-serve", f"predict_clips(pipeline='audio_video') request {i}: {len(req)} wav,npy groups, "
-                            f"{dt * 1e3:.2f} ms incl. model build + checkpoint load + decode + log-mel + .npy load "
-                            f"| {smi}")
-    predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_REQUEST,
-                                                  device=DEVICE)
-
-    def resident_request(req):
-        return predictor.predict_logits(*serving._featurize_modalities("audio_video", cfg, req, device=DEVICE))
-
-    resident_request(requests[0])  # warm-up
-    resident, total_s = [], 0.0
-    for i, req in enumerate(requests):
-        before = logmel_cuda.launch_count
-        t0 = time.perf_counter()
-        resident.append(resident_request(req))
-        total_s += time.perf_counter() - t0
-        if logmel_cuda.launch_count <= before:
-            raise SystemExit(f"resident request {i} did not launch the log-mel kernel")
-    resident = np.concatenate(resident)
-    launches = logmel_cuda.launch_count
-    log("av-serve", f"resident Predictor: {len(groups)} clips in {len(requests)} requests of {AV_REQUEST}, "
-                    f"{total_s * 1e3:.2f} ms, {total_s / len(requests) * 1e3:.3f} ms per request, "
-                    f"{len(groups) / total_s:.1f} clips/s (WAV decode + log-mel kernel + .npy load + H2D + "
-                    f"{AV_MODEL} + D2H); log-mel kernel launches while serving: {launches} | {smi}")
-    stages = av_request_breakdown(predictor.model, requests[0])
-    log("av-serve", f"one request of {len(requests[0])} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
-        f"{k} {v:.3f}" + ("" if k.endswith("%") else " ms") for k, v in stages.items()) + f" | {smi}")
-    accuracy = 100.0 * float((resident.argmax(-1) == labels).mean())
-    log("av-serve", f"served accuracy on the {len(groups)} test clips {accuracy:.2f}% "
-                    f"(final test {av['final_test_acc']:.2f}%)")
-    if abs(accuracy - av["final_test_acc"]) > 100.0 / len(groups) + 1e-9:
-        raise SystemExit("the served AV checkpoint's accuracy differs from the final test's")
+    served, predictor, launches = serve_requests(
+        "av-serve", "audio_video", cfg, best, requests, AV_REQUEST, "WAV decode + log-mel kernel + .npy load", smi,
+        kernel=True)
+    log_breakdown("av-serve", av_request_breakdown(predictor.model, requests[0]), len(requests[0]), smi)
+    check_served_accuracy("av-serve", served["resident"][0], av["datasets"]["test"].labels, av["final_test_acc"])
 
     # the same weights on plain-version features on the card, and on the CPU
     waves = torch.from_numpy(decode_waveforms([g[0] for g in groups])).to(DEVICE)
     lips = load_lip_sequences([g[1] for g in groups])
     plain = log_mel_reference(waves, True)[:, :80, :AV_INPUT_SIZE].cpu().numpy()
-    ref_plain = predictor.predict_logits(plain, lips)
     cpu = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_REQUEST, device="cpu")
     with model_precision(torch.float32):
         ref_cpu = cpu.predict_logits(plain, lips)
-    spread = float(np.ptp(ref_cpu, axis=0).max())
-    log("av-serve", f"CPU logits: scale {float(np.abs(ref_cpu).max()):.3f}, largest spread across clips {spread:.3f}")
-    if not spread >= 10 * LOGITS_TOL:
-        raise SystemExit("the AV logits barely depend on the input: the comparisons below could not fail")
-    for name, logits in (("predict_clips", np.asarray(through_api)), ("resident", resident)):
-        if logits.shape != (len(groups), len(WORDS)) or not np.isfinite(logits).all():
-            raise SystemExit(f"{name}: AV logits of shape {logits.shape}, finite={np.isfinite(logits).all()}")
-        for ref_name, ref in (("plain-version features on the card", ref_plain), ("the CPU", ref_cpu)):
-            err = float(np.abs(logits - ref).max())
-            ok = np.allclose(logits, ref, rtol=LOGITS_TOL, atol=LOGITS_TOL)
-            log("av-serve", f"{name} card logits vs the same weights on {ref_name}: max abs err {err:.3e} "
-                            f"(tolerance {LOGITS_TOL:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"{name}: the card's AV logits disagree with {ref_name}")
+    check_served("av-serve", served,
+                 {"plain-version features on the card": predictor.predict_logits(plain, lips), "the CPU": ref_cpu})
     return launches
+
+
+def cues_config(root: str, base: str, seed: int) -> "Config":
+    """configs/cues_config.yaml on ``root`` with the ``CUES_SET`` overrides
+    (this script reads no YAML, tests/test_torch_port_hygiene.py, so the
+    file's keys are spelt out)."""
+    from multimodal_lipread_torch.config import Config
+
+    cfg = Config.from_dict({
+        "dataset": {"root_dir": root, "cue_root": root, "cue_mode": "emotion",
+                    "cache_dir": os.path.join(base, "cache"), "use_file_splits": False},
+        "model": {"name": "multi_attn"},
+        "training": {"batch_size": CUES_BATCH, "learning_rate": 0.001, "epochs": 30, "seed": seed,
+                     "split_seed": 42, "val_fraction": 0.1},
+        "output": {"base_dir": base, "plots": False},
+    })
+    for key, value in CUES_SET.items():
+        cfg.set(key, value)
+    return cfg
+
+
+def phase_cues_train(seed: int, device_info: dict, tmp: str) -> dict:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.cues import get_cue_model
+    from multimodal_lipread_torch.pipelines import cues as cues_pipeline
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    tmp = os.path.join(tmp, "cues")
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=CUES_CLIPS_PER_SPLIT,
+                                seed=seed, with_cues=True)
+    cfg = cues_config(root, os.path.join(tmp, "run"), seed)
+    t0 = time.perf_counter()
+    datasets, classes = cues_pipeline.load_cue_classification_data(
+        root, "emotion", "bert_tok", val_fraction=0.1, seed=cfg.get("training.split_seed"), bert_size="base")
+    load_s = time.perf_counter() - t0
+    ids = datasets["train"].inputs[0]
+    log("cues-train", f"synthetic cue corpus from --seed: {len(datasets['train'])} train + {len(datasets['val'])} val "
+                      f"emotion records, {len(classes)} words; token ids {ids.shape} {ids.dtype}, "
+                      f"{float((ids != 0).sum(1).mean()):.1f} of {ids.shape[1]} not padding on average; read + "
+                      f"tokenize {load_s * 1e3:.2f} ms | host CPU ({os.cpu_count()} cores)")
+    t0 = time.perf_counter()
+    result = cues_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in get_cue_model("bert", len(WORDS), bert_size=CUES_SET["model.bert_size"]).parameters())
+    epochs = CUES_SET["training.epochs"]
+    log("cues-train", f"pipelines.cues.main: bert at bert-base width (12 layers, hidden 768, 12 heads, FFN 3072; "
+                      f"{n_params} parameters), float32, batch {CUES_BATCH}, lr {CUES_SET['training.learning_rate']:g} "
+                      f"linear_warmup, {epochs} epochs in {wall:.2f} s (tokenize, model build, training, "
+                      f"evaluation, checkpoints)")
+    hist = result["history"]
+    log_epochs("cues-train", hist, smi)
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss")]
+    if len(hist) != epochs or not np.isfinite(losses).all() or "test_loss" in hist[0]:
+        raise SystemExit(f"cue training gave {len(hist)} epochs, losses {losses}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise SystemExit("the cue train loss did not fall from epoch 1 to the last epoch")
+    best = result.get("best_checkpoint") or os.path.join(tmp, "run", "models_trained", "bert_best.pt")
+    if not os.path.isfile(best):
+        raise SystemExit("no cue best checkpoint")
+    val = datasets["val"]
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("cues", cfg), best, CUES_REQUEST, device=DEVICE)
+    served_acc = 100.0 * float((predictor.predict(*val.inputs) == val.labels).mean())
+    log("cues-train", f"the best checkpoint ({os.path.getsize(best) / 2**20:.1f} MiB with Adam's moments) reloaded "
+                      f"into a Predictor: val accuracy {served_acc:.2f}% (best val {result['best_val_acc']:.2f}%)")
+    if abs(served_acc - result["best_val_acc"]) > 100.0 / len(val) + 1e-9:
+        raise SystemExit("the served cue checkpoint's accuracy differs from the best val accuracy")
+    del predictor
+
+    train_ds = datasets["train"]
+    trainer = Trainer(get_cue_model("bert", len(WORDS), bert_size="base"), TrainerConfig(
+        model_name="bert", num_classes=len(WORDS), batch_size=CUES_BATCH, epochs=1,
+        learning_rate=CUES_SET["training.learning_rate"], weight_decay=0.0, seed=seed, host_prefetch=0,
+        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
+        device=DEVICE)
+    trainer.init_state()
+    log_train_measures("cues-train", train_measures(trainer, train_ds, seed), f"B={CUES_BATCH} x 32 tokens",
+                       len(train_ds), "int32 token ids", smi)
+    del trainer
+    check_first_steps("cues-train", train_ds, tmp, seed, CUES_SET["training.learning_rate"], CUES_DRIFT_RTOL,
+                      batch_size=CUES_BATCH, pipeline="cues", model_name="bert")
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "best": best, "root": root, "tmp": tmp, "datasets": datasets}
+
+
+def cues_request_breakdown(net: torch.nn.Module, paths: list) -> dict:
+    """Milliseconds of each stage of one cues request: reading the text
+    files and tokenizing them (host clock), then on the card's timeline
+    (CUDA events) the copy of the int32 ids, the forward and the copy of
+    the logits back; ``device idle`` is the share of the wall time outside
+    those."""
+    from multimodal_lipread_torch.models.bert import HashingTokenizer
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    names = ("read + tokenize", "H2D", "forward", "D2H")
+    totals = np.zeros(len(names) + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    tokenizer = HashingTokenizer()
+    with torch.inference_mode(), model_precision(torch.float32):
+        for _ in range(BREAKDOWN_ITERS):
+            t0 = time.perf_counter()
+            texts = []
+            for p in paths:
+                with open(p, encoding="utf-8") as f:
+                    texts.append(f.read().strip())
+            ids = tokenizer(texts)
+            t_host = time.perf_counter() - t0
+            ev[0].record()
+            x = torch.from_numpy(ids).to(DEVICE)
+            ev[1].record()
+            logits = net(x)
+            ev[2].record()
+            logits.cpu()
+            ev[3].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            device = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+            totals += [t_host * 1e3, *device, 100.0 * (1.0 - sum(device) / (wall * 1e3))]
+    out = dict(zip(names, totals[:-1] / BREAKDOWN_ITERS))
+    return {**out, "device idle %": totals[-1] / BREAKDOWN_ITERS}
+
+
+def write_cue_texts(folder: str, descriptions: list) -> list:
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, text in enumerate(descriptions):
+        path = os.path.join(folder, f"cue_{i:04d}.txt")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+        paths.append(path)
+    return paths
+
+
+def phase_cues_serve(cues: dict, device_info: dict) -> None:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.cues import load_cue_records
+
+    smi, cfg, best = device_info["smi"], cues["cfg"], cues["best"]
+    records = load_cue_records(cues["root"], "emotion")[: CUES_REQUEST * CUES_REQUESTS]
+    groups = [[p] for p in write_cue_texts(os.path.join(cues["tmp"], "requests"), [r.description for r in records])]
+    requests = [groups[i : i + CUES_REQUEST] for i in range(0, len(groups), CUES_REQUEST)]
+    # predict_clips builds bert-base and reads its 1.25 GB checkpoint per call: two calls
+    served, predictor, _ = serve_requests("cues-serve", "cues", cfg, best, requests, CUES_REQUEST,
+                                          "read + tokenize", smi, api_requests=2)
+    log_breakdown("cues-serve", cues_request_breakdown(predictor.model, [g[0] for g in requests[0]]),
+                  len(requests[0]), smi)
+    labels = np.asarray([WORDS.index(r.word) for r in records])
+    log("cues-serve", f"served accuracy on the {len(groups)} records (train and val) "
+                      f"{100.0 * float((served['resident'][0].argmax(-1) == labels).mean()):.2f}%")
+    ids = serving._featurize_modalities("cues", cfg, groups, device="cpu")[0]
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("cues", cfg), best, CUES_REQUEST, device="cpu")
+    check_served("cues-serve", served,
+                 {"the CPU": cpu.predict_logits(ids)})
+
+
+def ac_config(root: str, base: str, seed: int) -> "Config":
+    """configs/ac_config.yaml's model and recipe on ``root``."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "cue_root": root, "input_size": AC_INPUT_SIZE, "cue_mode": "emotion",
+                    "embed_model": "mpnet", "cache_dir": os.path.join(base, "cache"), "num_classes": len(WORDS)},
+        "model": {"name": AC_MODEL, "dtype": "float32"},
+        "train": {"batch": AC_BATCH, "lr": AC_LR, "epochs": AC_EPOCHS, "seed": seed},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def phase_ac_train(seed: int, device_info: dict, tmp: str) -> dict:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.cues import load_cue_records, records_by_key
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines import audio_cues as ac_pipeline
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    tmp = os.path.join(tmp, "ac")
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=AC_CLIPS_PER_SPLIT,
+                                seed=seed, with_cues=True)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    datasets, classes = ac_pipeline.load_audio_cue_datasets(root, root, input_size=AC_INPUT_SIZE, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    featurize_launches = logmel_cuda.launch_count
+    mels, cue_emb = datasets["train"].inputs
+    log("ac-train", f"synthetic corpus from --seed: {sum(len(d) for d in datasets.values())} aligned wav + cue "
+                    f"clips, {len(datasets['train'])} per split, {len(classes)} words; mels {mels.shape} {mels.dtype}, "
+                    f"cue embeddings {cue_emb.shape} {cue_emb.dtype}; load_audio_cue_datasets (decode, log-mel on "
+                    f"the card, read + hashing mpnet embedding) {load_s * 1e3:.2f} ms with {featurize_launches} "
+                    f"log-mel kernel launches")
+    if featurize_launches < 1:
+        raise SystemExit("the audio_cues featurization never launched the log-mel kernel")
+    cue_map = records_by_key(load_cue_records(root, "emotion"))
+    entries = [e for e in scan_glips(root).by_split("train") if e.key in cue_map]
+    wave = torch.from_numpy(decode_waveforms([e.path for e in entries])).to(DEVICE)
+    want = log_mel_reference(wave, True)[:, :80, :AC_INPUT_SIZE].cpu().numpy()
+    max_err = float(np.abs(mels - want).max())
+    ok = mels.shape == want.shape and bool(np.isfinite(mels).all()) and max_err <= KERNEL_TOL
+    log("ac-train", f"featurized mels vs plain-version features: max abs err {max_err:.3e} "
+                    f"(tolerance {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the audio_cues featurization disagrees with the plain log-mel")
+
+    cfg = ac_config(root, os.path.join(tmp, "run"), seed)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    result = ac_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = logmel_cuda.launch_count
+    n_params = sum(p.numel() for p in get_audio_cues_model(AC_MODEL, len(WORDS)).parameters())
+    log("ac-train", f"pipelines.audio_cues.main: {AC_MODEL} (MobileNetV2 over the 1 x 80 x {AC_INPUT_SIZE} log-mel, "
+                    f"cue Linear 768 -> 128, 4-head self-attention over 1408, 256; {n_params} parameters), float32, "
+                    f"batch {AC_BATCH}, lr {AC_LR:g} with a 2-epoch warmup, {AC_EPOCHS} epochs in {wall:.2f} s "
+                    f"(featurization, model build, training, evaluation, checkpoints); log-mel kernel launches: "
+                    f"{launches}")
+    if launches < 1:
+        raise SystemExit("audio_cues training never launched the log-mel kernel")
+    hist = result["history"]
+    log_epochs("ac-train", hist, smi)
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
+    if len(hist) != AC_EPOCHS or not np.isfinite(losses).all():
+        raise SystemExit(f"audio_cues training gave {len(hist)} epochs, losses {losses}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise SystemExit("the audio_cues train loss did not fall from epoch 1 to the last epoch")
+    best = result.get("best_checkpoint")
+    if not best or not os.path.isfile(best) or not np.isfinite(result.get("final_test_loss", np.nan)):
+        raise SystemExit("no audio_cues best checkpoint, or no final test on it")
+    log("ac-train", f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
+                    f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+    test = datasets["test"]
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_cues", cfg), best, AC_BATCH,
+                                                  device=DEVICE)
+    served_acc = 100.0 * float((predictor.predict(*test.inputs) == test.labels).mean())
+    log("ac-train", f"served the best checkpoint through Predictor.from_checkpoint: {len(test)} test clips, "
+                    f"accuracy {served_acc:.2f}% (final test {result['final_test_acc']:.2f}%)")
+    if abs(served_acc - result["final_test_acc"]) > 100.0 / len(test) + 1e-9:
+        raise SystemExit("the served audio_cues checkpoint's accuracy differs from the final test's")
+    check_reestimated_bn("ac-train", serving.build_model("audio_cues", cfg),
+                         os.path.join(os.path.dirname(best), f"{AC_MODEL}_checkpoint.pt"), datasets)
+
+    train_ds = datasets["train"]
+    trainer = Trainer(get_audio_cues_model(AC_MODEL, len(WORDS)), TrainerConfig(
+        model_name=AC_MODEL, num_classes=len(WORDS), batch_size=AC_BATCH, epochs=1, learning_rate=AC_LR,
+        weight_decay=0.0, scheduler_factor=0.5, scheduler_patience=3, seed=seed, host_prefetch=0,
+        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
+        device=DEVICE)
+    trainer.init_state()
+    log_train_measures("ac-train", train_measures(trainer, train_ds, seed), f"B={AC_BATCH}", len(train_ds),
+                       "mels + cue embeddings", smi)
+    check_first_steps("ac-train", train_ds, tmp, seed, AC_LR, AC_DRIFT_RTOL, batch_size=AC_BATCH,
+                      pipeline="audio_cues", model_name=AC_MODEL)
+    return {"cfg": cfg, "best": best, "root": root, "tmp": tmp, "datasets": datasets,
+            "final_test_acc": result["final_test_acc"], "launches": featurize_launches + launches,
+            "max_abs_err": max_err}
+
+
+def check_reestimated_bn(phase: str, model: torch.nn.Module, ckpt: str, datasets: dict) -> None:
+    """The last epoch's weights (the rolling checkpoint) on the validation
+    split in eval mode: with the running BatchNorm statistics that training
+    left, then with each BatchNorm's statistics re-estimated as the mean of
+    its train-mode batch statistics over the training split, the weights
+    frozen. The second must exceed chance by 5 standard deviations of a
+    guesser's accuracy on that many clips: the weights learned the task
+    even where eval-mode accuracy with the running statistics does not show
+    it (at lr 1e-3 those trail the weights: PERF.md §5)."""
+    from multimodal_lipread_torch.nn.common import BatchNorm
+    from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_module_state
+
+    load_module_state(model, load_checkpoint(ckpt)["state"])
+    model.to(DEVICE)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    val, train = datasets["val"], datasets["train"]
+
+    def batches(ds):
+        for i in range(0, len(ds) - AC_BATCH + 1, AC_BATCH):
+            yield tuple(torch.from_numpy(x[i : i + AC_BATCH]).to(DEVICE) for x in ds.inputs)
+
+    def val_acc() -> float:
+        model.eval()
+        pred = torch.cat([model(*xs).argmax(-1) for xs in batches(val)]).cpu().numpy()
+        return 100.0 * float((pred == val.labels[: len(pred)]).mean())
+
+    with torch.no_grad():
+        running = val_acc()
+        sums = [torch.zeros(2, b.num_features, device=DEVICE) for b in bns]
+        model.train()
+        n = 0
+        for xs in batches(train):
+            for b in bns:
+                b.momentum = 0.0  # running stats := this batch's
+            model(*xs)
+            for t, b in zip(sums, bns):
+                t += torch.stack([b.running_mean, b.running_var])
+            n += 1
+        for t, b in zip(sums, bns):
+            b.running_mean.copy_(t[0] / n)
+            b.running_var.copy_(t[1] / n)
+        reestimated = val_acc()
+    p = 1.0 / len(WORDS)
+    floor = 100.0 * (p + 5 * np.sqrt(p * (1 - p) / (len(val) // AC_BATCH * AC_BATCH)))
+    ok = reestimated >= floor
+    log(phase, f"last epoch's weights on val, eval mode: {running:.2f}% with training's running BatchNorm "
+               f"statistics, {reestimated:.2f}% with them re-estimated over the {n} training batches, weights frozen "
+               f"(at least {floor:.2f}%: chance + 5 sd) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{phase}] the trained weights do not classify the validation split")
+
+
+def ac_request_breakdown(net: torch.nn.Module, group: list) -> dict:
+    """Milliseconds of each stage of one audio_cues request: WAV decode
+    (host clock), the log-mel kernel (CUDA events), reading the cue texts
+    and embedding them on the host (``HashingEmbedder``, the backend
+    wherever the sentence-transformers weights are absent), then on the
+    card's timeline the copies to the card (waves and embeddings), the
+    forward and the copy of the logits back; ``device idle`` is the share of
+    the wall time outside the card's stages."""
+    from multimodal_lipread_torch.data.cues import EMBED_DIMS, HashingEmbedder
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    names = ("WAV decode", "log-mel kernel", "embed", "H2D", "forward", "D2H")
+    totals = np.zeros(len(names) + 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    embedder = HashingEmbedder(EMBED_DIMS["mpnet"])
+    with torch.inference_mode(), model_precision(torch.float32):
+        for _ in range(BREAKDOWN_ITERS):
+            t0 = time.perf_counter()
+            waves = decode_waveforms([g[0] for g in group])
+            t1 = time.perf_counter()
+            ev[0].record()
+            wave = torch.from_numpy(waves).to(DEVICE)
+            ev[1].record()
+            mel = logmel_cuda.log_mel(wave, True)[:, :80, :AC_INPUT_SIZE]
+            ev[2].record()
+            t2 = time.perf_counter()
+            texts = []
+            for g in group:
+                with open(g[1], encoding="utf-8") as f:
+                    texts.append(f.read().strip())
+            emb = embedder.encode(texts)
+            t3 = time.perf_counter()
+            ev[3].record()
+            cue = torch.from_numpy(emb).to(DEVICE)
+            ev[4].record()
+            logits = net(mel, cue)
+            ev[5].record()
+            logits.cpu()
+            ev[6].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            h2d = ev[0].elapsed_time(ev[1]) + ev[3].elapsed_time(ev[4])
+            kernel, forward, d2h = ev[1].elapsed_time(ev[2]), ev[4].elapsed_time(ev[5]), ev[5].elapsed_time(ev[6])
+            busy = h2d + kernel + forward + d2h
+            totals += [(t1 - t0) * 1e3, kernel, (t3 - t2) * 1e3, h2d, forward, d2h,
+                       100.0 * (1.0 - busy / (wall * 1e3))]
+    out = dict(zip(names, totals[:-1] / BREAKDOWN_ITERS))
+    return {**out, "device idle %": totals[-1] / BREAKDOWN_ITERS}
+
+
+def phase_ac_serve(ac: dict, device_info: dict) -> int:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.cues import load_cue_records, records_by_key
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    smi, cfg, best = device_info["smi"], ac["cfg"], ac["best"]
+    cue_map = records_by_key(load_cue_records(ac["root"], "emotion"))
+    entries = [e for e in scan_glips(ac["root"]).by_split("test") if e.key in cue_map][: AC_REQUEST * AC_REQUESTS]
+    texts = write_cue_texts(os.path.join(ac["tmp"], "requests"), [cue_map[e.key].description for e in entries])
+    groups = [[e.path, t] for e, t in zip(entries, texts)]
+    requests = [groups[i : i + AC_REQUEST] for i in range(0, len(groups), AC_REQUEST)]
+    served, predictor, launches = serve_requests(
+        "ac-serve", "audio_cues", cfg, best, requests, AC_REQUEST, "WAV decode + log-mel kernel + cue embedding",
+        smi, kernel=True)
+    log_breakdown("ac-serve", ac_request_breakdown(predictor.model, requests[0]), len(requests[0]), smi)
+    labels = ac["datasets"]["test"].labels[: len(groups)]
+    log("ac-serve", f"served accuracy on {len(groups)} test clips "
+                    f"{100.0 * float((served['resident'][0].argmax(-1) == labels).mean()):.2f}% (final test on all "
+                    f"{len(ac['datasets']['test'])}: {ac['final_test_acc']:.2f}%)")
+
+    waves = torch.from_numpy(decode_waveforms([g[0] for g in groups])).to(DEVICE)
+    plain = log_mel_reference(waves, True)[:, :80, :AC_INPUT_SIZE].cpu().numpy()
+    cue = serving._featurize_modalities("audio_cues", cfg, groups, device="cpu")[1]
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("audio_cues", cfg), best, AC_REQUEST, device="cpu")
+    with model_precision(torch.float32):
+        ref_cpu = cpu.predict_logits(plain, cue)
+    check_served("ac-serve", served,
+                 {"plain-version features on the card": predictor.predict_logits(plain, cue), "the CPU": ref_cpu})
+    return launches
+
+
+def cue_zoo_inputs(cues: dict) -> dict:
+    """Each cue embedding kind's features of ``CUES_BATCH`` [cues-train]
+    records taken from the words in turn (the first rows, which [zoo]
+    holds to the CPU, are of different words), and their labels."""
+    from multimodal_lipread_torch.data.cues import load_cue_records
+    from multimodal_lipread_torch.data.tfidf import TfidfVectorizer
+    from multimodal_lipread_torch.models.cues import cue_embedding_kind
+    from multimodal_lipread_torch.pipelines.cues import _featurize
+
+    records = load_cue_records(cues["root"], "emotion")
+    by_word = [[i for i, r in enumerate(records) if r.word == w] for w in WORDS]
+    rows = [ids[j] for j in range(min(map(len, by_word))) for ids in by_word][:CUES_BATCH]
+    picked = [records[i] for i in rows]
+    cache = cues["cfg"].get("dataset.cache_dir")
+    kinds = {cue_embedding_kind(n) for n in ZOO_CUES} - {"tfidf"}
+    feats = {k: _featurize(picked, k, cache, bert_size="base") for k in kinds}
+    # the TF-IDF vocabulary is fitted on the whole pool, as the pipeline fits it
+    feats["tfidf"] = TfidfVectorizer().fit_transform([r.description for r in records])[rows].astype(np.float32)
+    labels = np.asarray([WORDS.index(r.word) for r in picked], np.int32)
+    return {"feats": feats, "labels": labels}
 
 
 def zoo_trainer(name: str, model: torch.nn.Module, batch: int, tmp: str, seed: int):
@@ -1267,10 +1693,14 @@ def zoo_trainer(name: str, model: torch.nn.Module, batch: int, tmp: str, seed: i
     return trainer
 
 
-def zoo_step(trainer, inputs: tuple, labels: np.ndarray) -> dict:
+def zoo_step(trainer, inputs: tuple, labels: np.ndarray, tol: float = LOGITS_TOL) -> dict:
     """One forward + backward + Adam step on the card (finite loss), the
     mean step time over ``ZOO_ITERS`` more, and the eval logits on the first
-    ``ZOO_CPU_ROWS`` rows against a copy of the same weights on the CPU."""
+    ``ZOO_CPU_ROWS`` rows against a copy of the same weights on the CPU,
+    computing in float32 there. The card's error must also stay under a
+    tenth of the CPU logits' largest spread across those rows, so that a
+    forward that ignored its input would fail even where a random
+    initialization leaves the logits nearly constant."""
     import copy
 
     from multimodal_lipread_torch.utils.precision import model_precision
@@ -1282,23 +1712,28 @@ def zoo_step(trainer, inputs: tuple, labels: np.ndarray) -> dict:
     step_ms = cuda_ms(lambda: trainer.train_step(xs, y, w), warmup=1, iters=ZOO_ITERS)
     model = trainer.model.eval()
     rows = tuple(trainer._prepare(x[:ZOO_CPU_ROWS]) for x in xs)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_model.dtype = torch.float32
     with torch.no_grad(), model_precision(torch.float32):
         card = model(*rows).float().cpu().numpy()
-        cpu = copy.deepcopy(model).cpu()(*(x.cpu() for x in rows)).float().numpy()
+        cpu = cpu_model(*(x.cpu() for x in rows)).float().numpy()
     err = float(np.abs(card - cpu).max())
-    ok = bool(np.isfinite(loss_sum) and np.isfinite(card).all()) and np.allclose(card, cpu, rtol=LOGITS_TOL,
-                                                                                   atol=LOGITS_TOL)
-    return {"loss": loss_sum / wsum, "step_ms": step_ms, "err": err, "ok": ok,
-            "params": sum(p.numel() for p in model.parameters())}
+    spread = float(np.ptp(cpu, axis=0).max())
+    ok = (bool(np.isfinite(loss_sum) and np.isfinite(card).all()) and np.allclose(card, cpu, rtol=tol, atol=tol)
+          and err <= spread / 10)
+    return {"loss": loss_sum / wsum, "step_ms": step_ms, "err": err, "ok": ok, "spread": spread,
+            "scale": float(np.abs(cpu).max()), "params": sum(p.numel() for p in model.parameters())}
 
 
-def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str) -> None:
+def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str, cues: dict, ac: dict) -> None:
     from multimodal_lipread_torch.config import Config
     from multimodal_lipread_torch.models.audio import get_audio_model
+    from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+    from multimodal_lipread_torch.models.cues import cue_embedding_kind, get_cue_model
     from multimodal_lipread_torch.models.audio_video import get_av_model
     from multimodal_lipread_torch.models.video import get_video_model
     from multimodal_lipread_torch.pipelines.common import load_pretrained_backbones
-    from multimodal_lipread_torch.train.checkpoint import load_checkpoint
+    from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_module_state
 
     smi = device_info["smi"]
     mels, lips = av["datasets"]["train"].inputs
@@ -1321,23 +1756,42 @@ def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str)
     if count != 1 or not equal:
         raise SystemExit("the grafted backbone differs from its source checkpoint")
 
-    cases = ([("audio_video", n, lambda n=n: get_av_model(n, len(WORDS)), av_in) for n in ZOO_AV]
-             + [("audio", n, lambda n=n: get_audio_model(n, len(WORDS)), audio_in) for n in ZOO_AUDIO]
-             + [("video", "conformer", lambda: get_video_model("conformer", len(WORDS)), video_in)])
+    cue_in = cue_zoo_inputs(cues)
+    ac_in, ac_labels = tuple(x[:AC_BATCH] for x in ac["datasets"]["train"].inputs), ac["datasets"]["train"].labels
+    cases = ([("audio_video", n, lambda n=n: get_av_model(n, len(WORDS)), av_in, labels) for n in ZOO_AV]
+             + [("audio", n, lambda n=n: get_audio_model(n, len(WORDS)), audio_in, labels) for n in ZOO_AUDIO]
+             + [("video", "conformer", lambda: get_video_model("conformer", len(WORDS)), video_in, labels)]
+             + [("cues", n, lambda n=n: get_cue_model(n, len(WORDS), bert_size="base",
+                                                     input_dim=cue_in["feats"][cue_embedding_kind(n)].shape[-1]),
+                 (cue_in["feats"][cue_embedding_kind(n)],), cue_in["labels"]) for n in ZOO_CUES]
+             + [("audio_cues", n, lambda n=n: get_audio_cues_model(n, len(WORDS)), ac_in, ac_labels) for n in ZOO_AC])
     bad = []
-    for kind, name, build, inputs in cases:
+    for kind, name, build, inputs, case_labels in cases:
         batch = len(inputs[0])
-        trainer = grafted if name == "early_fusion_resnet" else zoo_trainer(f"{kind}_{name}", build(), batch, tmp, seed)
-        r = zoo_step(trainer, inputs, labels[:batch])
+        trainer = grafted if name == "early_fusion_resnet" and kind == "audio_video" else zoo_trainer(
+            f"{kind}_{name}", build(), batch, tmp, seed)
+        bf16 = trainer.compute_dtype == torch.bfloat16
+        tol = BF16_LOGITS_TOL if bf16 else LOGITS_TOL
+        from_trained = ""
+        if name == "bert_lite":
+            # bert-base at random init gives nearly the same logits for any
+            # input; [cues-train]'s trained weights (the same parameters)
+            # make them depend on it
+            load_module_state(trainer.model, load_checkpoint(cues["best"])["state"])
+            from_trained = ", from [cues-train]'s best bert weights"
+        r = zoo_step(trainer, inputs, case_labels[:batch], tol)
         log("zoo", f"{kind} {name} at B={batch}: {r['params']} parameters, first step loss {r['loss']:.4f}, step "
-                   f"(forward + backward + Adam, float32) {r['step_ms']:.3f} ms (CUDA events, mean of {ZOO_ITERS}); "
-                   f"eval logits vs the CPU on {ZOO_CPU_ROWS} rows: max abs err {r['err']:.3e} (tolerance "
-                   f"{LOGITS_TOL:g}) {'ok' if r['ok'] else 'FAIL'} | {smi}")
+                   f"(forward + backward + Adam, {'bfloat16' if bf16 else 'float32'}) {r['step_ms']:.3f} ms (CUDA "
+                   f"events, mean of {ZOO_ITERS}); eval logits vs the CPU in float32 on {ZOO_CPU_ROWS} rows: max abs "
+                   f"err {r['err']:.3e} (tolerance {tol:g}, and a tenth of the CPU logits' largest spread across "
+                   f"rows {r['spread']:.3e}; their scale {r['scale']:.3f}){from_trained} "
+                   f"{'ok' if r['ok'] else 'FAIL'} | {smi}")
         if not r["ok"]:
             bad.append(f"{kind} {name}")
         del trainer
     if bad:
-        raise SystemExit(f"[zoo] a non-finite loss, or card logits that disagree with the CPU, for {bad}")
+        raise SystemExit(f"[zoo] a non-finite loss, or card logits that disagree with the CPU by more than the "
+                         f"tolerance or a tenth of how far the logits move with the input, for {bad}")
 
 
 def main(argv=None) -> int:
@@ -1360,7 +1814,12 @@ def main(argv=None) -> int:
         av = phase_av_train(args.seed, device_info, tmp)
         launches += av["launches"]
         launches += phase_av_serve(av, device_info)
-        phase_zoo(args.seed, device_info, av, video["best"], tmp)
+        cues = phase_cues_train(args.seed, device_info, tmp)
+        phase_cues_serve(cues, device_info)
+        ac = phase_ac_train(args.seed, device_info, tmp)
+        launches += ac["launches"]
+        launches += phase_ac_serve(ac, device_info)
+        phase_zoo(args.seed, device_info, av, video["best"], tmp, cues, ac)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     row = kernel["rows"][SERVE_BATCH]
@@ -1370,13 +1829,13 @@ def main(argv=None) -> int:
         "source": "multimodal_lipread_torch/csrc/logmel.cu",
         "replaces": "multimodal_lipread_tpu/ops/logmel_pallas.py:107",
         "launches": launches,
-        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"], av["max_abs_err"]),
+        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"], av["max_abs_err"], ac["max_abs_err"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
-        "paths": ["serve", "train", "av-train", "av-serve"],
+        "paths": ["serve", "train", "av-train", "av-serve", "ac-train", "ac-serve"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

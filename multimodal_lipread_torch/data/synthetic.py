@@ -1,18 +1,24 @@
-"""Synthetic mini-GLips corpus: audio clips and lip-region tensors (the
-audio and lip halves of the JAX package's ``data/synthetic.py``, numpy
-only; its cue descriptions and rendered .mp4 files are not ported).
+"""Synthetic mini-GLips corpus: audio clips, lip-region tensors and cue
+descriptions (the JAX package's ``data/synthetic.py``, numpy only; its
+rendered .mp4 files are not ported).
 
 Writes ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.wav`` (16 kHz
-PCM16, 1.25 s) and ``<root>_lip_regions/lipread_files/<word>/<split>/
-<word>_NNNN-NNNN.npy`` ((29, 44, 44, 3) uint8) with class-conditional
-signals, so models can fit the corpus: for audio a harmonic stack at a
-class-specific pitch (up to 8 classes) or a two-tone grid code (more
-classes); for lips a class-specific brightness and stripe period (up to 8
-classes) or a brightness × stripe grid code (more classes).
+PCM16, 1.25 s), ``<root>_lip_regions/lipread_files/<word>/<split>/
+<word>_NNNN-NNNN.npy`` ((29, 44, 44, 3) uint8) and
+``<root>/Descriptions_{Emotion,Environment}/lipreading_analysis_results_
+{mode}_{word}_{split}.json`` (lists of ``{word, sequence_id,
+description}``) with class-conditional signals, so models can fit the
+corpus: for audio a harmonic stack at a class-specific pitch (up to 8
+classes) or a two-tone grid code (more classes); for lips a class-specific
+brightness and stripe period (up to 8 classes) or a brightness × stripe
+grid code (more classes); for cues class-specific adjectives
+(``cue_style='slice'``) or a mood × articulation word pair placed after
+token 32 (``'compositional'``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Sequence, Union
 
@@ -22,6 +28,73 @@ from multimodal_lipread_torch.data.audio_io import SAMPLE_RATE, TARGET_SAMPLES, 
 from multimodal_lipread_torch.data.glips import SPLITS, lip_regions_root
 
 DEFAULT_WORDS = ("abend", "bereits", "cirka", "dabei")
+
+_EMOTION_TEMPLATES = (
+    "The speaker appears {adj} while articulating, with {feat} lip movement.",
+    "A {adj} expression dominates; the mouth shows {feat} motion.",
+    "Facial cues suggest a {adj} mood and {feat} articulation.",
+)
+_ENV_TEMPLATES = (
+    "The speaker stands before a {adj} backdrop with {feat} lighting.",
+    "An indoor scene with {adj} walls and {feat} illumination.",
+    "The background looks {adj}; lighting is {feat}.",
+)
+_ADJ = ("calm", "tense", "neutral", "animated", "focused", "relaxed", "bright", "plain")
+_FEAT = ("subtle", "pronounced", "rapid", "slow", "rhythmic", "steady", "soft", "sharp")
+
+# the compositional style's marker words, disjoint from _ADJ/_FEAT and from
+# each other
+_MOOD = ("wistful", "jubilant", "stoic", "agitated", "serene", "brooding", "playful", "solemn")
+_ARTIC = ("clipped", "drawled", "staccato", "flowing", "mumbled", "crisp", "halting", "emphatic")
+_SCENE = ("cluttered", "sparse", "sunlit", "shadowed", "tiled", "curtained", "paneled", "mirrored")
+_LIGHT = ("flickering", "diffuse", "harsh", "amber", "pale", "strobing", "dappled", "even")
+
+_COMP_C1 = (
+    "at first the speaker simply faces the camera and settles into position "
+    "before the clip begins in earnest",
+    "the recording opens with the speaker adjusting their stance while the "
+    "frame holds steady on the face",
+    "for the opening moments nothing stands out as the speaker waits quietly "
+    "and the shot stays fixed in place",
+)
+_COMP_C2_EMOTION = (
+    "early frames hint at a {weak} expression though the impression stays "
+    "faint and hard to pin down",
+    "an initial glance suggests something {weak} about the face but the "
+    "signal is weak and easy to doubt",
+    "there is a passing {weak} quality to the look yet it fades before it "
+    "can be read with confidence",
+)
+_COMP_C2_ENV = (
+    "early frames hint at a {weak} backdrop though the impression stays "
+    "faint and hard to pin down",
+    "an initial glance suggests something {weak} about the setting but the "
+    "signal is weak and easy to doubt",
+    "there is a passing {weak} quality to the room yet it fades before it "
+    "can be read with confidence",
+)
+_COMP_C3_EMOTION = (
+    "by the end the mood reads {mood} overall, a {mood} cast that lingers, "
+    "while the articulation remains {artic}, even insistently {artic}, for "
+    "the rest of the take",
+    "once the word is spoken the expression settles into something {mood}, "
+    "unmistakably {mood}, and the delivery turns {artic}, resolutely "
+    "{artic}, until the cut",
+    "the closing frames leave a {mood} impression, {mood} through and "
+    "through, as the mouth keeps a {artic} rhythm, {artic} to the last "
+    "moment",
+)
+_COMP_C3_ENV = (
+    "by the end the scene reads {mood} overall, a {mood} cast that lingers, "
+    "while the lighting remains {artic}, even insistently {artic}, for the "
+    "rest of the take",
+    "once the word is spoken the backdrop settles into something {mood}, "
+    "unmistakably {mood}, and the illumination turns {artic}, resolutely "
+    "{artic}, until the cut",
+    "the closing frames leave a {mood} impression, {mood} through and "
+    "through, as the lighting keeps a {artic} character, {artic} to the "
+    "last moment",
+)
 
 
 def _synth_waveform(
@@ -126,6 +199,63 @@ def _synth_lip_sequence(
     return np.clip((base + frames + stripes) * contrast, 0, 255).astype(np.uint8)
 
 
+def _synth_description(
+    rng: np.random.Generator, mode: str, class_idx: int, num_classes: int = 4, hardness: float = 0.0
+) -> str:
+    """One of three templates per mode, with an adjective and a feature word
+    from the class's slice of the 8-word vocabularies (stride
+    ``8 // num_classes``; neighbouring slices overlap beyond 4 classes).
+    With probability 0.65·hardness both words come from the whole
+    vocabulary instead."""
+    tmpl = (_EMOTION_TEMPLATES if mode == "emotion" else _ENV_TEMPLATES)[int(rng.integers(3))]
+    if hardness > 0 and rng.uniform() < 0.65 * hardness:
+        adj = _ADJ[int(rng.integers(len(_ADJ)))]
+        feat = _FEAT[int(rng.integers(len(_FEAT)))]
+    else:
+        stride = max(1, len(_ADJ) // max(1, num_classes))
+        adj = _ADJ[(stride * class_idx + int(rng.integers(2))) % len(_ADJ)]
+        feat = _FEAT[(stride * class_idx + int(rng.integers(2))) % len(_FEAT)]
+    return tmpl.format(adj=adj, feat=feat)
+
+
+def _synth_description_compositional(
+    rng: np.random.Generator, mode: str, class_idx: int, num_classes: int = 4, hardness: float = 0.0
+) -> str:
+    """Three clauses: an opening without signal, a clause with a weak marker
+    word (the class's slice of ``_ADJ`` with probability
+    max(0.1, 0.45 − 0.3·hardness), else any), and, after token 32, a mood
+    word and an articulation word whose indices sum to the class modulo
+    ``num_classes`` (both uniform with probability 0.5·hardness). Up to 8
+    classes."""
+    if num_classes > 8:
+        raise ValueError(
+            "compositional cue style supports <= 8 classes (8-word marker "
+            f"vocabularies); got {num_classes}"
+        )
+    c1 = _COMP_C1[int(rng.integers(len(_COMP_C1)))]
+    c2_t = (_COMP_C2_EMOTION if mode == "emotion" else _COMP_C2_ENV)[int(rng.integers(3))]
+    c3_t = (_COMP_C3_EMOTION if mode == "emotion" else _COMP_C3_ENV)[int(rng.integers(3))]
+    p_inform = max(0.1, 0.45 - 0.3 * hardness)
+    if rng.uniform() < p_inform:
+        stride = max(1, len(_ADJ) // max(1, num_classes))
+        weak = _ADJ[(stride * class_idx + int(rng.integers(2))) % len(_ADJ)]
+    else:
+        weak = _ADJ[int(rng.integers(len(_ADJ)))]
+    vocab_mood = (_MOOD if mode == "emotion" else _SCENE)[:num_classes]
+    vocab_artic = (_ARTIC if mode == "emotion" else _LIGHT)[:num_classes]
+    if hardness > 0 and rng.uniform() < 0.5 * hardness:
+        mi = int(rng.integers(len(vocab_mood)))
+        ai = int(rng.integers(len(vocab_artic)))
+    else:
+        mi = int(rng.integers(len(vocab_mood)))
+        ai = (class_idx - mi) % num_classes
+    return ". ".join((
+        c1.capitalize(),
+        c2_t.format(weak=weak).capitalize(),
+        c3_t.format(mood=vocab_mood[mi], artic=vocab_artic[ai]).capitalize(),
+    )) + "."
+
+
 def make_synthetic_glips(
     root: str,
     words: Sequence[str] = DEFAULT_WORDS,
@@ -136,23 +266,29 @@ def make_synthetic_glips(
     label_noise: float = 0.0,
     with_audio: bool = True,
     with_lip_regions: bool = False,
+    with_cues: bool = False,
+    cue_style: str = "slice",
 ) -> str:
     """Write a synthetic GLips tree under ``root``; returns ``root``.
 
     ``with_audio`` writes the WAV clips, ``with_lip_regions`` the lip
-    tensors into the mirror tree ``<root>_lip_regions``; the default is
-    audio only. ``hardness`` is a float or a mapping with ``audio`` and
-    ``video`` keys (the JAX function's per-modality form). ``label_noise``
+    tensors into the mirror tree ``<root>_lip_regions``, ``with_cues`` one
+    emotion and one environment description per clip into the cue store
+    under ``root`` (``cue_style`` 'slice' or 'compositional'); the default
+    is audio only. ``hardness`` is a float or a mapping with ``audio``,
+    ``video`` and ``cues`` keys (the JAX function's per-modality form). ``label_noise``
     redraws the signal class of that fraction of train clips while the
     folder word (the label) stays. Sequence ids run ``0000-0001``,
     ``0002-0003``, ... over the whole corpus, wrapping at 10000.
 
     One random stream is drawn per corpus, per clip in the JAX function's
-    order (label noise, waveform, lips), so for the same arguments the
-    files are byte for byte those of the JAX package's
-    ``make_synthetic_glips`` called with ``with_cues=False`` and the same
-    ``with_audio`` and ``with_lip_regions`` (the default here equals
-    ``with_lip_regions=False, with_cues=False``)."""
+    order (label noise, waveform, lips, then the emotion and the
+    environment description), so for the same arguments the files are byte
+    for byte those of the JAX package's ``make_synthetic_glips`` (whose
+    defaults differ: there ``with_lip_regions`` and ``with_cues`` are
+    true)."""
+    if cue_style not in ("slice", "compositional"):
+        raise ValueError(f"unknown cue_style {cue_style!r}")
     if clips_per_split > 5000:
         raise ValueError(
             f"clips_per_split={clips_per_split} > 5000 would wrap the 4-digit "
@@ -161,10 +297,14 @@ def make_synthetic_glips(
     rng = np.random.default_rng(seed)
     if isinstance(hardness, dict):
         h_audio, h_video = float(hardness.get("audio", 0.0)), float(hardness.get("video", 0.0))
+        h_cues = float(hardness.get("cues", 0.0))
     else:
-        h_audio = h_video = float(hardness)
+        h_audio = h_video = h_cues = float(hardness)
     words = sorted(words)
     lip_root = lip_regions_root(root)
+    describe = _synth_description_compositional if cue_style == "compositional" else _synth_description
+    cue_records = {(mode, word, split): [] for mode in ("emotion", "environment") for word in words
+                   for split in splits}
     seq_counter = 0
     for ci, word in enumerate(words):
         for split in splits:
@@ -181,4 +321,16 @@ def make_synthetic_glips(
                     path = os.path.join(lip_root, "lipread_files", word, split, f"{word}_{sid}.npy")
                     os.makedirs(os.path.dirname(path), exist_ok=True)
                     np.save(path, _synth_lip_sequence(rng, sig_ci, len(words), h_video))
+                if with_cues:
+                    for mode in ("emotion", "environment"):
+                        cue_records[(mode, word, split)].append({
+                            "word": word, "sequence_id": sid,
+                            "description": describe(rng, mode, sig_ci, len(words), h_cues),
+                        })
+    if with_cues:
+        for (mode, word, split), records in cue_records.items():
+            folder = os.path.join(root, f"Descriptions_{mode.capitalize()}")
+            os.makedirs(folder, exist_ok=True)
+            with open(os.path.join(folder, f"lipreading_analysis_results_{mode}_{word}_{split}.json"), "w") as f:
+                json.dump(records, f, indent=2)
     return root

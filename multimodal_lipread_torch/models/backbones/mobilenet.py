@@ -80,13 +80,14 @@ class InvertedResidualV2(nn.Module):
 
 
 class MobileNetV2(nn.Module):
-    """MobileNetV2 features over 3-channel NCHW frames."""
+    """MobileNetV2 features over NCHW images of ``in_channels`` channels (3
+    for lip frames, 1 for a log-mel image; the Flax module infers it)."""
 
     feature_dim = 1280
 
-    def __init__(self):
+    def __init__(self, in_channels: int = 3):
         super().__init__()
-        self.stem = ConvBNAct(3, 32, kernel=3, stride=2)
+        self.stem = ConvBNAct(in_channels, 32, kernel=3, stride=2)
         self.blocks = []
         c = 32
         for t, width, n, s in _SETTINGS:

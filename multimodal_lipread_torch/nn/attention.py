@@ -81,7 +81,11 @@ class MultiHeadDotProductAttention(nn.Module):
     """Flax's ``nn.MultiHeadDotProductAttention`` applied to (x, x):
 
     q, k, v = x·W + b per head (head_dim = D / heads); q scaled by
-    1/√head_dim; softmax over the keys; in training, dropout on the
+    1/√head_dim; an optional boolean ``mask`` broadcast to (B, heads, T, T)
+    (BERT's key mask is (B, 1, 1, T)) sets the logits where it is false to
+    the compute dtype's lowest value, as Flax's ``jnp.where(mask, w,
+    finfo(dtype).min)`` does, so a row with no key left gets a uniform
+    softmax, not NaN; softmax over the keys; in training, dropout on the
     attention probabilities with one (T, T) mask shared over batch and
     heads (Flax's ``broadcast_dropout=True``); then the output projection
     over heads·head_dim."""
@@ -97,7 +101,7 @@ class MultiHeadDotProductAttention(nn.Module):
         self.out = nn.Linear(dim, dim)
         self.dropout = Dropout(dropout_rate, broadcast_dims=(0, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, d = x.shape
         h = self.num_heads
 
@@ -106,7 +110,10 @@ class MultiHeadDotProductAttention(nn.Module):
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         q = q / math.sqrt(d // h)
-        weights = self.dropout(torch.softmax(q @ k.transpose(-1, -2), dim=-1))  # (B, heads, T, T)
+        logits = q @ k.transpose(-1, -2)  # (B, heads, T, T)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        weights = self.dropout(torch.softmax(logits, dim=-1))
         out = (weights @ v).transpose(1, 2).reshape(b, t, d)
         return linear(self.out, out)
 

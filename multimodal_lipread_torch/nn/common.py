@@ -110,20 +110,32 @@ class BatchNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Flax's ``nn.LayerNorm()`` over the last dimension: epsilon 1e-6,
-    statistics and normalization in float32 (or wider), the result in the
-    input's dtype; scale 1 and bias 0 at initialization. The variance is
-    taken in two passes (Flax: E[x²] − E[x]², which loses digits where the
-    mean is far larger than the spread)."""
+    """Flax's ``nn.LayerNorm(epsilon=eps)`` over the last dimension (Flax's
+    default epsilon 1e-6; BERT takes 1e-12), statistics and normalization in
+    float32 (or wider), the result in the input's dtype; scale 1 and bias 0
+    at initialization. The variance is taken in two passes (Flax: E[x²] −
+    E[x]², which loses digits where the mean is far larger than the
+    spread)."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, eps: float = LN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        return F.layer_norm(xf, self.weight.shape, self.weight, self.bias, LN_EPS).to(x.dtype)
+        return F.layer_norm(xf, self.weight.shape, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class Embedding(nn.Embedding):
+    """Flax's ``nn.Embed``: a (num_embeddings, features) float32 table
+    looked up by integer ids (int32 or int64), the rows returned in
+    ``dtype`` when one is given (Flax's ``dtype=``)."""
+
+    def forward(self, ids: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        rows = F.embedding(ids, self.weight)
+        return rows if dtype is None else rows.to(dtype)
 
 
 class Dropout(nn.Module):
@@ -217,7 +229,11 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
       truncated at ±2σ scaled to variance 1/fan_in, where fan_in is one
       output's inputs (``weight[0].numel()``: (I/groups)·kh·kw for a conv,
       D for the attention's query/key/value, heads·head_dim for its
-      output); biases 0;
+      output); biases 0, or a Linear's ``flax_bias_init`` where it sets one
+      (Flax's ``bias_init=constant(...)``);
+    - Embedding tables: Flax's embed init, variance-scaling 1.0 over the
+      feature axis with a truncated normal, which is the same law (fan_in =
+      features = ``weight[0].numel()``);
     - BatchNorm: scale 1, bias 0, running mean 0, running variance 1;
     - LayerNorm: scale 1, bias 0;
     - LSTM weights and biases: uniform on ±1/√H (``nn/recurrent.py`` of the
@@ -231,12 +247,12 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(fill(torch.empty(p.shape, dtype=torch.float32)))
 
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear, nn.Embedding)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             draw(m.weight, lambda t: nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std))
-            if m.bias is not None:
-                m.bias.zero_()
+            if getattr(m, "bias", None) is not None:
+                m.bias.fill_(getattr(m, "flax_bias_init", 0.0))
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,6 +1,6 @@
 """Shared pipeline plumbing: config → arrays → Trainer (counterpart of the
-JAX package's ``pipelines/common.py``: audio, video and audio_video parts,
-and ``model.pretrained`` grafting).
+JAX package's ``pipelines/common.py``: the audio, video and audio_video
+loaders, ``model.pretrained`` grafting and the common trainer knobs).
 
 Audio features are computed once, up front, on the device: every split's
 clips are decoded on the host (the threaded native decoder) and featurized
@@ -256,11 +256,14 @@ def model_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if str(cfg.get("model.dtype", "float32")) == "bfloat16" else torch.float32
 
 
-def trainer_extras(cfg: Config) -> dict:
+def trainer_extras(cfg: Config, default_warmup_epochs: float = 0.0) -> dict:
     """The ``training.*`` TrainerConfig knobs common to every pipeline, as
     the JAX package reads them. Unported ones are passed on, so that the
     trainer raises for them when they are set; ``dropout_rng_impl`` names a
-    JAX PRNG and has no counterpart here (torch draws dropout from Philox)."""
+    JAX PRNG and has no counterpart here (torch draws dropout from Philox).
+    ``default_warmup_epochs`` is a pipeline's own LR warmup where the config
+    sets none (audio_cues ships 2 epochs; ``training.warmup_epochs: 0``
+    restores the reference's schedule)."""
     rng_impl = cfg.get("training.dropout_rng_impl", "rbg")
     if rng_impl != "rbg":
         raise NotImplementedError(
@@ -268,7 +271,7 @@ def trainer_extras(cfg: Config) -> dict:
             "dropout from a torch.Generator (ROADMAP.md, Queue 3 #6)"
         )
     return {
-        "warmup_epochs": cfg.get("training.warmup_epochs", cfg.get("train.warmup_epochs", 0.0)),
+        "warmup_epochs": cfg.get("training.warmup_epochs", cfg.get("train.warmup_epochs", default_warmup_epochs)),
         "device_resident": cfg.get("training.device_resident", False),
         "steps_per_dispatch": cfg.get("training.steps_per_dispatch", 1),
         "handle_preemption": cfg.get("training.handle_preemption", False),

@@ -1,5 +1,5 @@
-"""Inference / serving of the audio, video and audio_video pipelines
-(counterpart of the JAX package's ``serving.py``).
+"""Inference / serving of the audio, video, audio_video, cues and
+audio_cues pipelines (counterpart of the JAX package's ``serving.py``).
 
 - ``Predictor``: a trained model from a checkpoint, in eval mode on one
   device; serves any number of inputs in fixed-size batches, padding the
@@ -12,18 +12,25 @@
   featurize (``_featurize_modalities``) → classify; for ``video`` the
   lip-region ``.npy`` files, kept uint8 up to the device; for
   ``audio_video`` a WAV and a ``.npy`` per clip, the WAV through the host
-  decode and the log-mel kernel on the predictor's device.
+  decode and the log-mel kernel on the predictor's device; for ``cues`` a
+  text file per clip, featurized as the model's training pipeline does
+  (token ids for BERT, cached sentence or token embeddings otherwise; the
+  TF-IDF ``linear`` model fits its vocabulary on the training corpus and
+  is refused, as in the JAX package); for ``audio_cues`` a WAV and a text
+  file per clip (log-mel kernel and ``dataset.embed_model`` embeddings).
 - a CLI: ``python -m multimodal_lipread_torch.serving --pipeline
-  audio|video|audio_video --config <yaml> --checkpoint <path> <clips...>``
-  → JSON predictions (WAV files for audio, lip-region ``.npy`` files for
-  video, ``clip.wav,clip.npy`` groups for audio_video).
+  audio|video|audio_video|cues|audio_cues --config <yaml> --checkpoint
+  <path> <clips...>`` → JSON predictions (WAV files for audio, lip-region
+  ``.npy`` files for video, ``clip.wav,clip.npy`` groups for audio_video,
+  cue ``.txt`` files for cues, ``clip.wav,cue.txt`` groups for audio_cues).
 
-The audio_video features are taken at ``dataset.audio_input_size`` time
-steps, the key its training pipeline reads (the JAX package's serving
-reads ``dataset.input_size`` there; ROADMAP.md Queue 3 notes it).
+The audio features are taken at the time steps the pipeline's training
+reads: ``dataset.audio_input_size`` for audio_video (the JAX package's
+serving reads ``dataset.input_size`` there; ROADMAP.md Queue 3 notes it),
+``dataset.input_size`` for audio_cues.
 
 Not ported yet (ROADMAP.md): data-parallel serving, graph export, the
-four cue pipelines, ``device_preproc``.
+cues_video and audio_cues_video pipelines, ``device_preproc``.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from multimodal_lipread_torch.utils.precision import compute_dtype, model_precis
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array → device tensor; uint8 inputs (lip tensors) cross at 1/4
     of the float bytes and are scaled to [0, 1] on the device, int16
-    waveforms cross at 1/2 and are cast to float32 there."""
+    waveforms cross at 1/2 and are cast to float32 there; int32 token ids
+    cross as they are."""
     t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
     if t.dtype == torch.uint8:
         return t.to(torch.float32) / 255.0
@@ -159,7 +167,7 @@ def predict_audio_clips(
     ]
 
 
-PIPELINES = ("audio", "video", "audio_video")
+PIPELINES = ("audio", "video", "audio_video", "cues", "audio_cues")
 # per-pipeline input modalities, in the model's order: 'a' = audio clip
 # path, 'v' = lip-region .npy path, 'c' = cue text file (the JAX package's)
 _PIPELINE_INPUTS = {
@@ -176,7 +184,7 @@ _PIPELINE_INPUTS = {
 def _unported(pipeline: str) -> NotImplementedError:
     return NotImplementedError(
         f"pipeline '{pipeline}' is not ported to PyTorch yet; ported: {', '.join(PIPELINES)} "
-        "(see ROADMAP.md, Queue 1 #9-10)"
+        "(see ROADMAP.md, Queue 1 #9.4-9.5)"
     )
 
 
@@ -206,9 +214,51 @@ def build_model(pipeline: str, config: Any) -> nn.Module:
             config.get("model.name", "middle_fusion_mobilenet"), config.get("dataset.num_classes", 4),
             input_size=config.get("dataset.audio_input_size", 117), dtype=model_dtype(config),
         )
+    if pipeline == "cues":
+        from multimodal_lipread_torch.models.cues import get_cue_model
+
+        return get_cue_model(config.get("model.name", "dense_nn"), config.get("dataset.num_classes", 4),
+                             dtype=model_dtype(config), bert_size=config.get("model.bert_size", "tiny"))
+    if pipeline == "audio_cues":
+        from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+
+        return get_audio_cues_model(config.get("model.name", "middle_fusion_mobile"),
+                                    config.get("dataset.num_classes", 4), dtype=model_dtype(config))
     if pipeline in _PIPELINE_INPUTS:
         raise _unported(pipeline)
     raise ValueError(f"unknown pipeline '{pipeline}' (one of {tuple(_PIPELINE_INPUTS)})")
+
+
+# the key of the log-mel width that each pipeline's training reads
+_AUDIO_INPUT_KEY = {"audio_video": "dataset.audio_input_size", "audio_cues": "dataset.input_size"}
+
+
+def _cue_features(pipeline: str, config: Any, paths: Sequence[str]) -> np.ndarray:
+    """Cue text files → the model's cue input: for ``cues`` the featurization
+    of the model's embedding kind (token ids for BERT, embeddings through
+    the cache otherwise; TF-IDF is refused), for the fusion pipelines the
+    ``dataset.embed_model`` sentence embedding."""
+    from multimodal_lipread_torch.data.cues import CueRecord, embed_cached
+
+    texts = []
+    for p in paths:
+        with open(p, "r", encoding="utf-8") as f:
+            texts.append(f.read().strip())
+    if pipeline != "cues":
+        return embed_cached(texts, model=config.get("dataset.embed_model", "mpnet"),
+                            cache_dir=config.get("dataset.cache_dir"))
+    from multimodal_lipread_torch.models.cues import cue_embedding_kind
+    from multimodal_lipread_torch.pipelines.cues import _featurize
+
+    kind = cue_embedding_kind(config.get("model.name", "dense_nn"))
+    if kind == "tfidf":
+        raise ValueError(
+            "the 'linear' (TF-IDF) cue model fits its vectorizer on the training corpus and cannot be "
+            "served from a checkpoint alone — use an embedding-based cue model"
+        )
+    records = [CueRecord(word="", split="", sequence_id="", description=t) for t in texts]
+    return np.asarray(_featurize(records, kind, config.get("dataset.cache_dir"),
+                                 bert_size=config.get("model.bert_size", "tiny")))
 
 
 def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[str]],
@@ -216,9 +266,10 @@ def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[
     """Per-clip file groups (one path per modality, in the order of
     ``_PIPELINE_INPUTS``) → the model's input arrays, as the training
     pipeline featurizes them. Audio is decoded on the host and featurized
-    by the log-mel kernel on ``device`` at ``dataset.audio_input_size``
-    steps; lips are loaded as uint8 (a float file in [0, 1] is scaled to
-    uint8) and scaled to [0, 1] on the device by the predictor. The audio
+    by the log-mel kernel on ``device`` at the width of
+    ``_AUDIO_INPUT_KEY``; lips are loaded as uint8 (a float file in [0, 1]
+    is scaled to uint8) and scaled to [0, 1] on the device by the
+    predictor; cue text files go through ``_cue_features``. The audio
     pipeline goes through ``predict_audio_clips``."""
     if pipeline == "audio":
         raise ValueError("audio uses predict_audio_clips (streaming-aware)")
@@ -238,7 +289,9 @@ def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[
             from multimodal_lipread_torch.pipelines.common import compute_logmel_features, decode_waveforms
 
             inputs.append(compute_logmel_features(
-                decode_waveforms(paths), input_size=config.get("dataset.audio_input_size", 117), device=device))
+                decode_waveforms(paths), input_size=config.get(_AUDIO_INPUT_KEY[pipeline], 117), device=device))
+        elif code == "c":
+            inputs.append(_cue_features(pipeline, config, paths))
         else:
             lips = np.stack([np.load(p) for p in paths])
             if lips.dtype != np.uint8:
@@ -296,7 +349,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from multimodal_lipread_torch.config import load_config
 
     parser = argparse.ArgumentParser(
-        description="Serve an audio, video or audio_video checkpoint of the PyTorch port: classify clips",
+        description="Serve a checkpoint of the PyTorch port (audio, video, audio_video, cues, audio_cues): "
+                    "classify clips",
     )
     parser.add_argument("--pipeline", default="audio", choices=PIPELINES)
     parser.add_argument("--config", required=True)
@@ -305,7 +359,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     parser.add_argument("clips", nargs="+",
                         help="files to classify: WAV clips (audio), lip-region .npy files (video), "
-                             "or comma-separated 'clip.wav,clip.npy' groups (audio_video)")
+                             "comma-separated 'clip.wav,clip.npy' groups (audio_video), cue .txt files (cues), "
+                             "or 'clip.wav,cue.txt' groups (audio_cues)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
     results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],

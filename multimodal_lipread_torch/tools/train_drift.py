@@ -1,7 +1,7 @@
 """How far float32 training trajectories part, on the card and the CPU,
 from a float64 run of the same steps.
 
-    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video|audio_video]
+    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video|audio_video|cues|audio_cues]
         [--model NAME] [--lrs 5e-4 3e-5 1e-5] [--steps 3] [--seeds 0 ...] [--no-cpu]
 
 For each of ``--seeds`` it writes the port's synthetic corpus from the
@@ -12,7 +12,12 @@ model ``vgg_lstm`` (VGG16-BN, BiLSTM 2 x 128) at batch 32; for
 ``resnet_trans`` (visual_config.yaml's widths) at batch 16; for
 ``--pipeline audio_video`` 32 aligned clips per split (log-mel by the
 kernel, lips uint8) and the model ``middle_fusion_mobilenet``
-(av_config.yaml's, input 117) at batch 8 without weight decay. From one
+(av_config.yaml's, input 117) at batch 8 without weight decay; for
+``--pipeline cues`` the emotion cue records of 32 clips per split, pooled
+and split 90/10 as ``pipelines.cues`` splits them, as token ids, and
+``bert`` at bert-base width at batch 8; for ``--pipeline audio_cues`` 68
+clips per split (log-mel by the kernel, hashed mpnet cue embeddings) and
+``middle_fusion_mobile`` (ac_config.yaml's) at batch 32. From one
 Flax-style initialization from the seed (dropout 0) it takes the first
 ``--steps`` training steps of the full-width model on the same batches: in
 float64 on the card (the reference), in float32 on the card (TF32 off, as
@@ -45,20 +50,34 @@ PIPELINES = {
     "audio": dict(model="vgg_lstm", batch=32, weight_decay=1e-4, clips=68, lrs=[5e-4, 3e-5, 1e-5]),
     "video": dict(model="resnet_trans", batch=16, weight_decay=1e-5, clips=32, lrs=[5e-5, 1e-5]),
     "audio_video": dict(model="middle_fusion_mobilenet", batch=8, weight_decay=0.0, clips=32, lrs=[1e-4, 1e-5]),
+    "cues": dict(model="bert", batch=8, weight_decay=0.0, clips=32, lrs=[5e-5, 1e-5]),
+    "audio_cues": dict(model="middle_fusion_mobile", batch=32, weight_decay=0.0, clips=68, lrs=[1e-3, 1e-5]),
 }
+
+
+def _no_dropout(net: torch.nn.Module) -> torch.nn.Module:
+    from multimodal_lipread_torch.nn.common import Dropout
+
+    for m in net.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return net
 
 
 def build(pipeline: str, model: str, version: int = 16) -> torch.nn.Module:
     """The pipeline's full-width model with dropout 0."""
     if pipeline == "audio_video":
         from multimodal_lipread_torch.models.audio_video import get_av_model
-        from multimodal_lipread_torch.nn.common import Dropout
 
-        net = get_av_model(model, NUM_CLASSES)
-        for m in net.modules():
-            if isinstance(m, Dropout):
-                m.rate = 0.0
-        return net
+        return _no_dropout(get_av_model(model, NUM_CLASSES))
+    if pipeline == "cues":
+        from multimodal_lipread_torch.models.cues import get_cue_model
+
+        return _no_dropout(get_cue_model(model, NUM_CLASSES, bert_size="base"))
+    if pipeline == "audio_cues":
+        from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+
+        return _no_dropout(get_audio_cues_model(model, NUM_CLASSES))
     if pipeline == "audio":
         from multimodal_lipread_torch.models.audio import VGGWithLSTMClassifier
 
@@ -75,7 +94,8 @@ def first_steps(ds: ArrayDataset, device: str, dtype: torch.dtype, lr: float, st
                 pipeline: str = "audio", model_name: str = "vgg_lstm") -> List[float]:
     """Losses of the first ``steps`` training steps of a full-width model
     from the trainer's initialization for ``seed``, dropout 0, in ``dtype``
-    on ``device`` (uint8 lips scaled to [0, 1] in that dtype)."""
+    on ``device`` (uint8 lips scaled to [0, 1] in that dtype, token ids
+    left integer)."""
     model = build(pipeline, model_name, version)
     wd = PIPELINES[pipeline]["weight_decay"]
     trainer = Trainer(model, TrainerConfig(
@@ -91,7 +111,9 @@ def first_steps(ds: ArrayDataset, device: str, dtype: torch.dtype, lr: float, st
                                              weight_decay=wd)
 
     def widen(x: torch.Tensor) -> torch.Tensor:
-        return x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
+        if x.dtype == torch.uint8:
+            return x.to(dtype) / 255.0
+        return x.to(dtype) if x.is_floating_point() else x
 
     losses: List[float] = []
     for inputs, labels, weights in trainer.batches(ds, True, np.random.default_rng(seed)):
@@ -127,6 +149,16 @@ def train_split(pipeline: str, root: str, seed: int) -> ArrayDataset:
     from multimodal_lipread_torch.pipelines import common
 
     clips = PIPELINES[pipeline]["clips"]
+    if pipeline == "cues":
+        from multimodal_lipread_torch.pipelines.cues import load_cue_classification_data
+
+        make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_cues=True)
+        return load_cue_classification_data(root, "emotion", "bert_tok", bert_size="base")[0]["train"]
+    if pipeline == "audio_cues":
+        from multimodal_lipread_torch.pipelines.audio_cues import load_audio_cue_datasets
+
+        make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_cues=True)
+        return load_audio_cue_datasets(root, root, splits=("train",), device="cuda")[0]["train"]
     if pipeline == "audio":
         make_synthetic_glips(root, clips_per_split=clips, seed=seed)
         return common.load_audio_datasets(root, splits=("train",), device="cuda")[0]["train"]

@@ -18,13 +18,17 @@ The inverse of the JAX package's ``utils/torch_import.py``: it takes
   ``running_mean``/``running_var``; a BatchNorm that a JAX module wraps in
   its own module (``bn1/BatchNorm_0/...``, the ResNet's and ShuffleNet's
   ``_BN``) maps to the port's ``bn1`` itself;
-- LayerNorm ``scale``/``bias`` (no statistics) → ``weight``/``bias``;
+- LayerNorm ``scale``/``bias`` (no statistics) → ``weight``/``bias``
+  (BERT's ``layer_norm``, ``attention_norm``, ``output_norm`` too);
+- Embed ``embedding`` (num_embeddings, features) → ``weight``, the same
+  layout;
 - LSTM ``l{n}_{fwd,bwd}/{w_ih, w_hh, b_ih, b_hh}`` (D, 4H) →
   ``{weight_ih, weight_hh, bias_ih, bias_hh}_l{n}[_reverse]`` (4H, D); a
   single ``LSTMLayer``'s ``{w_ih, w_hh, b_ih, b_hh}`` at its own scope →
   ``..._l0``;
-- a bare parameter leaf (the late-fusion models' 0-d ``alpha``) → the
-  tensor under its own name.
+- a bare parameter leaf (the AV late-fusion models' 0-d ``alpha``, the
+  audio_cues late fusion's (2,) ``attn_weights``) → the tensor under its
+  own name.
 
 Nothing here imports JAX: the caller converts to numpy first.
 """
@@ -77,6 +81,9 @@ def _walk(p: Any, s: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor
         return
     if set(p) == {"BatchNorm_0"}:  # a BatchNorm wrapped in its own module: one level less
         _walk(p["BatchNorm_0"], s.get("BatchNorm_0", {}), prefix, out, name)
+        return
+    if "embedding" in p:  # Embed
+        out[prefix + "weight"] = _t(p["embedding"])
         return
     if "kernel" in p:  # Conv, Dense or an attention projection
         out[prefix + "weight"] = _t(_kernel(np.asarray(p["kernel"]), name))

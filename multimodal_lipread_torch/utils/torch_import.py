@@ -17,7 +17,9 @@ its layout transposes: both ends are torch layout. Each returns a flat
 - ``convert_mobilenet_v2`` / ``convert_mobilenet_v3_small`` →
   ``backbones.MobileNetV2`` / ``MobileNetV3Small``;
 - ``convert_shufflenet_v2``: shufflenet_v2_x0_5 / x1_0 → ``ShuffleNetV2``;
-- ``convert_lstm``: ``torch.nn.LSTM`` (batch first) → ``nn.recurrent.LSTM``.
+- ``convert_lstm``: ``torch.nn.LSTM`` (batch first) → ``nn.recurrent.LSTM``;
+- ``convert_hf_bert``: a Hugging Face ``BertForSequenceClassification`` (or
+  ``BertModel`` under ``bert.``) → ``models.bert.BertClassifier``.
 
 torchvision's ``num_batches_tracked`` counters have no counterpart and are
 dropped.
@@ -183,6 +185,36 @@ def convert_lstm(src: Any, num_layers: int = 1, bidirectional: bool = True) -> S
             for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                 key = f"{name}_l{layer}{suffix}"
                 out[key] = sd[key].clone()
+    return out
+
+
+def convert_hf_bert(src: Any, num_layers: int) -> StateDict:
+    """Hugging Face bert state dict → ``models.bert.BertClassifier`` names:
+    ``bert.embeddings.*`` → ``embeddings.*`` (``LayerNorm`` →
+    ``layer_norm``); per layer ``attention.self.{query,key,value}`` →
+    ``attention.{query,key,value}``, ``attention.output.dense`` →
+    ``attention.out``, ``attention.output.LayerNorm`` → ``attention_norm``,
+    ``intermediate.dense`` → ``intermediate``, ``output.dense`` → ``output``,
+    ``output.LayerNorm`` → ``output_norm``; ``bert.pooler.dense`` →
+    ``pooler``; ``classifier`` where the source has a head (else the
+    model's own head stays)."""
+    sd = load_state_dict(src)
+    out: StateDict = {}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        _copy(sd, out, f"embeddings.{name}", f"bert.embeddings.{name}")
+    _copy(sd, out, "embeddings.layer_norm", "bert.embeddings.LayerNorm", bias=True)
+    for i in range(num_layers):
+        t, f = f"bert.encoder.layer.{i}", f"layer{i}"
+        for qkv in ("query", "key", "value"):
+            _copy(sd, out, f"{f}.attention.{qkv}", f"{t}.attention.self.{qkv}", bias=True)
+        for dst, src_key in (("attention.out", "attention.output.dense"),
+                             ("attention_norm", "attention.output.LayerNorm"),
+                             ("intermediate", "intermediate.dense"), ("output", "output.dense"),
+                             ("output_norm", "output.LayerNorm")):
+            _copy(sd, out, f"{f}.{dst}", f"{t}.{src_key}", bias=True)
+    _copy(sd, out, "pooler", "bert.pooler.dense", bias=True)
+    if "classifier.weight" in sd:
+        _copy(sd, out, "classifier", "classifier", bias=True)
     return out
 
 

@@ -2,9 +2,11 @@
 the training and serving paths there: train steps on the card against the
 CPU (audio vgg_lstm and video resnet_trans), the video model's forward and
 the uint8 path of ``Predictor`` against the CPU, the BiLSTM's dropout
-masks, the native WAV decoder's build, and the audio_video path (its
+masks, the native WAV decoder's build, the audio_video path (its
 featurization through the log-mel kernel, a full-width train step, and
-``predict_clips`` against the CPU).
+``predict_clips`` against the CPU), and the cue paths (a bert-base forward
+on padded ids and an audio_cues train step against the CPU, int32 ids
+through the ``Predictor``).
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -353,3 +355,74 @@ def test_predict_clips_audio_video_on_the_card_matches_the_cpu(cuda_device, av_c
     cpu = serving.predict_clips(cfg, ckpt, "audio_video", groups, batch_size=8, device="cpu")
     np.testing.assert_allclose([r["logits"] for r in card], [r["logits"] for r in cpu], rtol=1e-3, atol=1e-3)
     assert [r["paths"] for r in card] == groups
+
+
+def _bert_base():
+    from multimodal_lipread_torch.models.cues import get_cue_model
+    from multimodal_lipread_torch.nn.common import flax_init_
+
+    return flax_init_(get_cue_model("bert", 4, bert_size="base"), torch.Generator().manual_seed(3)).eval()
+
+
+def _padded_ids(n, length=32, seed=0):
+    from multimodal_lipread_torch.models.bert import HashingTokenizer
+
+    rng = np.random.default_rng(seed)
+    words = ("calm", "tense", "speaker", "mouth", "rapid", "slow", "lighting", "bright", "plain", "the")
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(1, 40)))) for _ in range(n)]
+    return HashingTokenizer(8192, length)(texts)
+
+
+@pytest.mark.cuda
+def test_bert_base_forward_on_the_card_matches_the_cpu(cuda_device):
+    # cues_config's bert at bert-base width on padded int32 ids, float32 without TF32 on both
+    net = _bert_base()
+    ids = torch.from_numpy(np.concatenate([_padded_ids(5), np.zeros((1, 32), np.int32)]))  # and an all-padding row
+    assert (ids[:-1] == 0).any() and not ids[-1].any()  # padded rows, and one of padding only
+    with torch.no_grad(), model_precision(torch.float32):
+        want = net(ids)
+        got = net.to(cuda_device)(ids.to(cuda_device)).cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_audio_cues_train_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    # ac_config.yaml's middle_fusion_mobile at its widths; lr 1e-5 as above
+    rng = np.random.default_rng(7)
+    ds = ArrayDataset((rng.standard_normal((16, 80, 117)).astype(np.float32),
+                       (rng.standard_normal((16, 768)) * 0.05).astype(np.float32)), np.arange(16, dtype=np.int32) % 4)
+    losses = {}
+    for device in ("cuda", "cpu"):
+        cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=8, learning_rate=1e-5, weight_decay=0.0,
+                            seed=0, metrics_dir=str(tmp_path / device / "m"),
+                            checkpoints_dir=str(tmp_path / device / "c"))
+        model = get_audio_cues_model("middle_fusion_mobile", 4)
+        for m in model.modules():  # dropout masks cannot agree across devices
+            if hasattr(m, "rate"):
+                m.rate = 0.0
+        trainer = Trainer(model, cfg, device=device)
+        trainer.init_state()
+        out = [trainer.train_step(*batch).tolist() for batch in trainer.batches(ds, True, np.random.default_rng(0))]
+        losses[device] = np.asarray([a[0] / a[3] for a in out])
+    assert len(losses["cuda"]) == 2 and np.isfinite(losses["cuda"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_predictor_takes_int32_ids_on_the_card(cuda_device):
+    from multimodal_lipread_torch.models.bert import BertClassifier, bert_small_config
+    from multimodal_lipread_torch.nn.common import flax_init_
+    from multimodal_lipread_torch.serving import Predictor
+
+    net = flax_init_(BertClassifier(bert_small_config(), 4), torch.Generator().manual_seed(4))
+    seen = []
+    net.embeddings.word_embeddings.register_forward_pre_hook(lambda mod, args: seen.append(args[0].dtype))
+    ids = _padded_ids(5, seed=1)
+    want = Predictor(net, batch_size=4, device="cpu").predict_logits(ids)
+    got = Predictor(net, batch_size=4, device="cuda").predict_logits(ids)  # one full batch, one padded
+    assert seen == [torch.int32] * 4
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)

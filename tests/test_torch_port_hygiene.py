@@ -58,6 +58,13 @@ def test_port_never_uses_torch_cpp_extension():
             assert "cpp_extension" not in f.read(), path
 
 
+def test_port_never_imports_scikit_learn():
+    # scikit-learn is no dependency of the port: the cue pipeline's TF-IDF is
+    # its own (data/tfidf.py); only the CPU tests hold it to scikit-learn
+    for path in _port_files():
+        assert "sklearn" not in {n.split(".")[0] for n in _imports(path)}, path
+
+
 def test_plotting_is_imported_only_inside_functions():
     # the card machine has no matplotlib: training must import without it
     for path in _port_files():

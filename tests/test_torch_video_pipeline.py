@@ -325,7 +325,7 @@ def test_video_featurization_matches_jax(glips_root, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("pipeline", ["cues", "audio_cues", "cues_video", "audio_cues_video"])
+@pytest.mark.parametrize("pipeline", ["cues_video", "audio_cues_video"])
 def test_other_pipelines_point_at_roadmap(pipeline):
     cfg = Config.from_dict({})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -37,6 +37,10 @@ def _draw(name: str, shape: tuple, rng: np.random.Generator) -> np.ndarray:
         return 1.0 + 0.1 * rng.uniform(size=shape)
     if name == "alpha":  # the late-fusion models' 0-d mixing weight
         return rng.uniform(0.2, 0.8, shape)
+    if name == "attn_weights":  # the audio_cues late fusion's (2,) logits of the mix
+        return rng.uniform(0.5, 1.5, shape)
+    if name == "embedding":  # a Flax Embed table (num_embeddings, features)
+        return rng.standard_normal(shape) * 0.5
     raise KeyError(f"no drawing law for leaf '{name}'")
 
 
