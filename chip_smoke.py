@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-On one CUDA card (an H100 is the target), in order, each phase printing
-its lines and any failure ending the run with a non-zero exit:
+On one CUDA card (an H100 is the target), in order ([zoo], 14, runs
+last), each phase printing its lines and any failure ending the run with
+a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``). TF32 is left
    at the process default: the port's forwards set their own precision
@@ -142,9 +143,47 @@ its lines and any failure ending the run with a non-zero exit:
    at bert-base width in bf16, its logits held to the same weights in
    float32 on the CPU at the bf16 bound 5e-2) and the six other audio_cues
    models (B=32): every loss finite, each step's time, and eval logits
-   against the same weights on the CPU, to 1e-3.
+   against the same weights on the CPU, to 1e-3, and under a tenth of the
+   CPU logits' spread across the compared rows; its cases of the cues_video
+   and audio_cues_video models are listed under 19;
+15. cv-train: the synthetic corpus from ``--seed`` with audio, lips and cue
+   descriptions (4 words, 32 aligned clips per split, lips kept uint8,
+   hashed mpnet cue embeddings); ``pipelines.cues_video.main`` trains
+   ``configs/cv_config.yaml``'s ``middle_fusion_resnet`` (a trainable
+   ResNet18 over 29 frames, a 2-layer BiLSTM 2 x 128, a
+   ``SingleQueryAttention(256)`` queried by the projected cue, concat + MLP;
+   float32, batch 8, lr 1e-4, wd 1e-5, plateau (min, 0.5, 3)) for 3 epochs
+   with the checks and measurements of [av-train];
+16. cv-serve: 8 requests of 16 ``txt,npy`` groups to a resident
+   ``Predictor`` and two through ``predict_clips(pipeline="cues_video")``:
+   each request's time, clips/s, a breakdown of one request (read + embed,
+   ``.npy`` load, H2D, forward, D2H, card idle), and the logits against the
+   CPU to 1e-3;
+17. acv-train: the same corpus featurized by ``load_triple_datasets`` with
+   the kernel's launch count set to 0 (above 0 after, the mels held to the
+   plain version to 1e-4); then ``pipelines.audio_cues_video.main`` trains
+   ``configs/acv_config.yaml``'s ``late_fusion_mobile`` (ResNet18 over the
+   1 x 80 x 117 log-mel, MobileNetV2 over 29 frames + 2-layer BiLSTM, the
+   plain cue MLP, per-modality logits fused by ``ModalityAttentionFusion``;
+   batch 8, lr 1e-5, wd 1e-5) for 3 epochs with the same checks and
+   measurements, its rolling checkpoint written;
+18. acv-serve: 8 requests of 16 ``wav,txt,npy`` groups, each launching the
+   log-mel kernel, with the breakdown (WAV decode, log-mel kernel, read +
+   embed, ``.npy`` load, H2D, forward, D2H, card idle) and the logits
+   against plain-version features and the CPU to 1e-3;
+19. frozen: acv_config's recipe on ``early_fusion_mobile`` (audio ResNet18
+   and video MobileNetV2 frozen) through ``pipelines.audio_cues_video.main``
+   for 2 epochs, (a) with ``training.frozen_bn_eval``, (b) with
+   ``training.cache_frozen_features``, (c) by default: every frozen
+   parameter bit-equal to its start, the frozen BatchNorms' running
+   statistics moved in (c) only, (b)'s per-step losses equal to (a)'s to
+   1e-5 relative, and the step time of each; [zoo] then adds one step of
+   the six other cues_video models (B=8 on cue + lips) and the six other
+   audio_cues_video models (B=8 on mel + cue + lips), their frozen
+   parameters frozen.
 
-The video and cue phases and [zoo] launch no hand-written kernel. The line
+Every phase prints its wall time. The video and cue phases, [cv-*] and
+[zoo] launch no hand-written kernel. The line
 before the last is ``{"kernels": [...]}``, one entry per kernel, with the
 paths that launch it; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -246,6 +285,31 @@ AC_REQUEST, AC_REQUESTS = 16, 8
 # on an H100 (PERF.md)
 AC_DRIFT_SEEDS_MAX = np.array([3.473e-7, 1.417e-3, 1.533e-2])
 AC_DRIFT_RTOL = 2 * AC_DRIFT_SEEDS_MAX
+# [cv-train] / [cv-serve]: configs/cv_config.yaml's middle_fusion_resnet on
+# 4 words x 32 aligned cue + lip clips per split (an epoch is 16 steps of 8);
+# [acv-train] / [acv-serve] / [frozen] share the corpus, with audio
+CV_MODEL = "middle_fusion_resnet"
+CV_CLIPS_PER_SPLIT = 32
+CV_BATCH, CV_EPOCHS, CV_LR, CV_WD = 8, 3, 1e-4, 1e-5
+CV_REQUEST, CV_REQUESTS = 16, 8
+# the card's first 3 float32 steps at lr 1e-4 against float64 on the card:
+# per step, twice the largest distance that `train_drift --pipeline
+# cues_video --lrs 1e-4 --no-cpu --seeds 0 0 1 2 3 4 5 6 7` read on an H100
+# (PERF.md)
+CV_DRIFT_SEEDS_MAX = np.array([1.743e-7, 2.094e-5, 8.057e-5])
+CV_DRIFT_RTOL = 2 * CV_DRIFT_SEEDS_MAX
+# configs/acv_config.yaml's late_fusion_mobile (an epoch is 16 steps of 8)
+ACV_MODEL, ACV_INPUT_SIZE = "late_fusion_mobile", 117
+ACV_BATCH, ACV_EPOCHS, ACV_LR, ACV_WD = 8, 3, 1e-5, 1e-5
+ACV_REQUEST, ACV_REQUESTS = 16, 8
+# the same at lr 1e-5: `train_drift --pipeline audio_cues_video --lrs 1e-5
+# --no-cpu --seeds 0 0 1 2 3 4 5 6 7` (PERF.md)
+ACV_DRIFT_SEEDS_MAX = np.array([3.402e-7, 6.244e-6, 1.643e-5])
+ACV_DRIFT_RTOL = 2 * ACV_DRIFT_SEEDS_MAX
+# [frozen]: acv_config's recipe on early_fusion_mobile (audio ResNet18 and
+# video MobileNetV2 frozen), 2 epochs, run three ways; the cached run's
+# per-step losses against the frozen_bn_eval run's
+FROZEN_MODEL, FROZEN_EPOCHS, FROZEN_RTOL = "early_fusion_mobile", 2, 1e-5
 # bert_lite computes in bf16: its logits against float32 ones
 BF16_LOGITS_TOL = 5e-2
 # [zoo]: one training step of each model the slice ported, at full width
@@ -256,11 +320,23 @@ ZOO_CUES = ("dense_nn", "minilm_lstm", "minilm_lstm_attn", "multi_attn", "transf
             "minilm_cnn_bilstm_attn", "lstm_multi_attn", "linear", "bert_lite")
 ZOO_AC = ("early_fusion_mobile", "late_fusion_mobile", "early_fusion_resnet", "middle_fusion_resnet",
           "late_fusion_resnet", "test_model")
+ZOO_CV = ("early_fusion_mobile", "middle_fusion_mobile", "late_fusion_mobile", "early_fusion_resnet",
+          "late_fusion_resnet", "test_model")
+ZOO_ACV = ("early_fusion_mobile", "middle_fusion_mobile", "early_fusion_resnet", "middle_fusion_resnet",
+           "late_fusion_resnet", "test_model")
 ZOO_AUDIO_BATCH, ZOO_VIDEO_BATCH, ZOO_CPU_ROWS, ZOO_ITERS = 32, 16, 4, 5
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, its wall time printed under ``phase``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(phase, f"phase wall time {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def cuda_ms(fn, warmup: int = TIMING_WARMUP, iters: int = TIMING_ITERS) -> float:
@@ -807,6 +883,37 @@ def log_epochs(phase: str, hist: list, smi: str) -> None:
                    f"{h['clips_per_sec']:.1f} clips/s (train + val{' + test' if test else ''}) | {smi}")
 
 
+def check_history(phase: str, result: dict, epochs: int) -> str:
+    """Every epoch's losses finite, the train loss lower in the last epoch
+    than in the first, a best checkpoint and a final test on it; returns
+    the best checkpoint."""
+    hist = result["history"]
+    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
+    if len(hist) != epochs or not np.isfinite(losses).all():
+        raise SystemExit(f"[{phase}] training gave {len(hist)} epochs, losses {losses}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise SystemExit(f"[{phase}] the train loss did not fall from epoch 1 to the last epoch")
+    best = result.get("best_checkpoint")
+    if not best or not os.path.isfile(best) or not np.isfinite(result.get("final_test_loss", np.nan)):
+        raise SystemExit(f"[{phase}] no best checkpoint, or no final test on it")
+    log(phase, f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
+               f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+    return best
+
+
+def timing_trainer(model: torch.nn.Module, name: str, batch: int, lr: float, wd: float, tmp: str, seed: int):
+    """An initialized one-epoch trainer on the card for the step and epoch
+    measures."""
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(model, TrainerConfig(
+        model_name=name, num_classes=len(WORDS), batch_size=batch, epochs=1, learning_rate=lr, weight_decay=wd,
+        seed=seed, host_prefetch=0, metrics_dir=os.path.join(tmp, "timing", name, "metrics"),
+        checkpoints_dir=os.path.join(tmp, "timing", name, "ckpt")), device=DEVICE)
+    trainer.init_state()
+    return trainer
+
+
 def phase_train(seed: int, device_info: dict) -> dict:
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.config import Config
@@ -1108,7 +1215,6 @@ def phase_av_train(seed: int, device_info: dict, tmp: str) -> dict:
     from multimodal_lipread_torch.ops.logmel import log_mel_reference
     from multimodal_lipread_torch.pipelines import audio_video as av_pipeline
     from multimodal_lipread_torch.pipelines.common import decode_waveforms
-    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
     smi = device_info["smi"]
     tmp = os.path.join(tmp, "av")  # apart from the video phases' corpus and runs
@@ -1152,38 +1258,15 @@ def phase_av_train(seed: int, device_info: dict, tmp: str) -> dict:
                     f"training, evaluation, checkpoints); log-mel kernel launches: {launches}")
     if launches < 1:
         raise SystemExit("AV training never launched the log-mel kernel")
-    hist = result["history"]
-    for h in hist:
-        log("av-train", f"epoch {h['epoch']}: train {h['train_loss']:.4f}/{h['train_acc']:.2f}% "
-                        f"val {h['val_loss']:.4f}/{h['val_acc']:.2f}% test {h['test_loss']:.4f}/"
-                        f"{h['test_acc']:.2f}% lr {h['lr']:.2e}, {h['seconds']:.3f} s, "
-                        f"{h['clips_per_sec']:.1f} clips/s (train + val + test) | {smi}")
-    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
-    if len(hist) != AV_EPOCHS or not np.isfinite(losses).all():
-        raise SystemExit(f"AV training gave {len(hist)} epochs, losses {losses}")
-    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
-        raise SystemExit("the AV train loss did not fall from epoch 1 to the last epoch")
-    best = result.get("best_checkpoint")
-    if not best or not os.path.isfile(best) or not np.isfinite(result.get("final_test_loss", np.nan)):
-        raise SystemExit("no AV best checkpoint, or no final test on it")
-    log("av-train", f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
-                    f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+    log_epochs("av-train", result["history"], smi)
+    best = check_history("av-train", result, AV_EPOCHS)
     test = datasets["test"]
     predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_video", cfg), best, AV_BATCH,
                                                   device=DEVICE)
-    served_acc = 100.0 * float((predictor.predict(*test.inputs) == test.labels).mean())
-    log("av-train", f"served the best checkpoint through Predictor.from_checkpoint: {len(test)} test clips, "
-                    f"accuracy {served_acc:.2f}% (final test {result['final_test_acc']:.2f}%)")
-    if abs(served_acc - result["final_test_acc"]) > 100.0 / len(test) + 1e-9:
-        raise SystemExit("the served AV checkpoint's accuracy differs from the final test's")
+    check_served_accuracy("av-train", predictor.predict_logits(*test.inputs), test.labels, result["final_test_acc"])
 
     train_ds = datasets["train"]
-    trainer = Trainer(get_av_model(AV_MODEL, len(WORDS)), TrainerConfig(
-        model_name=AV_MODEL, num_classes=len(WORDS), batch_size=AV_BATCH, epochs=1, learning_rate=AV_LR,
-        weight_decay=0.0, scheduler_factor=1.0, seed=seed, host_prefetch=0,
-        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
-        device=DEVICE)
-    trainer.init_state()
+    trainer = timing_trainer(get_av_model(AV_MODEL, len(WORDS)), AV_MODEL, AV_BATCH, AV_LR, 0.0, tmp, seed)
     log_train_measures("av-train", train_measures(trainer, train_ds, seed),
                        f"B={AV_BATCH} ({AV_BATCH * lips.shape[1]} frames)", len(train_ds), "mels + uint8 lips", smi)
     del trainer
@@ -1438,7 +1521,6 @@ def phase_ac_train(seed: int, device_info: dict, tmp: str) -> dict:
     from multimodal_lipread_torch.ops.logmel import log_mel_reference
     from multimodal_lipread_torch.pipelines import audio_cues as ac_pipeline
     from multimodal_lipread_torch.pipelines.common import decode_waveforms
-    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
     smi = device_info["smi"]
     tmp = os.path.join(tmp, "ac")
@@ -1483,36 +1565,17 @@ def phase_ac_train(seed: int, device_info: dict, tmp: str) -> dict:
                     f"{launches}")
     if launches < 1:
         raise SystemExit("audio_cues training never launched the log-mel kernel")
-    hist = result["history"]
-    log_epochs("ac-train", hist, smi)
-    losses = [h[k] for h in hist for k in ("train_loss", "val_loss", "test_loss")]
-    if len(hist) != AC_EPOCHS or not np.isfinite(losses).all():
-        raise SystemExit(f"audio_cues training gave {len(hist)} epochs, losses {losses}")
-    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
-        raise SystemExit("the audio_cues train loss did not fall from epoch 1 to the last epoch")
-    best = result.get("best_checkpoint")
-    if not best or not os.path.isfile(best) or not np.isfinite(result.get("final_test_loss", np.nan)):
-        raise SystemExit("no audio_cues best checkpoint, or no final test on it")
-    log("ac-train", f"final test on the reloaded best checkpoint (best val acc {result['best_val_acc']:.2f}%): "
-                    f"loss {result['final_test_loss']:.4f}, acc {result['final_test_acc']:.2f}%")
+    log_epochs("ac-train", result["history"], smi)
+    best = check_history("ac-train", result, AC_EPOCHS)
     test = datasets["test"]
     predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_cues", cfg), best, AC_BATCH,
                                                   device=DEVICE)
-    served_acc = 100.0 * float((predictor.predict(*test.inputs) == test.labels).mean())
-    log("ac-train", f"served the best checkpoint through Predictor.from_checkpoint: {len(test)} test clips, "
-                    f"accuracy {served_acc:.2f}% (final test {result['final_test_acc']:.2f}%)")
-    if abs(served_acc - result["final_test_acc"]) > 100.0 / len(test) + 1e-9:
-        raise SystemExit("the served audio_cues checkpoint's accuracy differs from the final test's")
+    check_served_accuracy("ac-train", predictor.predict_logits(*test.inputs), test.labels, result["final_test_acc"])
     check_reestimated_bn("ac-train", serving.build_model("audio_cues", cfg),
                          os.path.join(os.path.dirname(best), f"{AC_MODEL}_checkpoint.pt"), datasets)
 
     train_ds = datasets["train"]
-    trainer = Trainer(get_audio_cues_model(AC_MODEL, len(WORDS)), TrainerConfig(
-        model_name=AC_MODEL, num_classes=len(WORDS), batch_size=AC_BATCH, epochs=1, learning_rate=AC_LR,
-        weight_decay=0.0, scheduler_factor=0.5, scheduler_patience=3, seed=seed, host_prefetch=0,
-        metrics_dir=os.path.join(tmp, "timing", "metrics"), checkpoints_dir=os.path.join(tmp, "timing", "ckpt")),
-        device=DEVICE)
-    trainer.init_state()
+    trainer = timing_trainer(get_audio_cues_model(AC_MODEL, len(WORDS)), AC_MODEL, AC_BATCH, AC_LR, 0.0, tmp, seed)
     log_train_measures("ac-train", train_measures(trainer, train_ds, seed), f"B={AC_BATCH}", len(train_ds),
                        "mels + cue embeddings", smi)
     check_first_steps("ac-train", train_ds, tmp, seed, AC_LR, AC_DRIFT_RTOL, batch_size=AC_BATCH,
@@ -1660,6 +1723,352 @@ def phase_ac_serve(ac: dict, device_info: dict) -> int:
     return launches
 
 
+def fusion_config(root: str, base: str, seed: int, model: str, batch: int, lr: float, wd: float, epochs: int,
+                  **training) -> "Config":
+    """configs/cv_config.yaml's and configs/acv_config.yaml's schema on ``root``."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "cue_root": root, "input_size": ACV_INPUT_SIZE, "cue_mode": "emotion",
+                    "embed_model": "mpnet", "cache_dir": os.path.join(base, "cache"), "num_classes": len(WORDS)},
+        "model": {"name": model, "dtype": "float32"},
+        "training": {"batch_size": batch, "learning_rate": lr, "weight_decay": wd, "epochs": epochs, "seed": seed,
+                     **training},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def phase_cv_train(seed: int, device_info: dict, tmp: str) -> dict:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import lip_regions_root
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.cues_video import get_cues_video_model
+    from multimodal_lipread_torch.pipelines import cues_video as cv_pipeline
+
+    smi = device_info["smi"]
+    tmp = os.path.join(tmp, "cv")
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=CV_CLIPS_PER_SPLIT,
+                                seed=seed, with_lip_regions=True, with_cues=True)
+    lip_root = lip_regions_root(root)
+    t0 = time.perf_counter()
+    datasets, classes = cv_pipeline.load_cue_video_datasets(root, lip_root)
+    load_s = time.perf_counter() - t0
+    cue_emb, lips = datasets["train"].inputs
+    log("cv-train", f"synthetic corpus from --seed: {sum(len(d) for d in datasets.values())} aligned cue + .npy "
+                    f"clips, {len(datasets['train'])} per split, classes {classes} (the aligned train words); cue "
+                    f"embeddings {cue_emb.shape} {cue_emb.dtype}, lips {lips.shape} {lips.dtype}; "
+                    f"load_cue_video_datasets (np.load, read + hashing mpnet embedding) {load_s * 1e3:.2f} ms")
+
+    cfg = fusion_config(root, os.path.join(tmp, "run"), seed, CV_MODEL, CV_BATCH, CV_LR, CV_WD, CV_EPOCHS)
+    t0 = time.perf_counter()
+    result = cv_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in get_cues_video_model(CV_MODEL, len(WORDS)).parameters())
+    log("cv-train", f"pipelines.cues_video.main: {CV_MODEL} (ResNet18 over 29 frames, trainable; BiLSTM 2 x 128, "
+                    f"2 layers; SingleQueryAttention(256) queried by the BatchNorm'd cue; concat -> 512 -> 4; "
+                    f"{n_params} parameters), float32, batch {CV_BATCH}, lr {CV_LR:g}, wd {CV_WD:g}, {CV_EPOCHS} "
+                    f"epochs in {wall:.2f} s (load, model build, training, evaluation, checkpoints)")
+    log_epochs("cv-train", result["history"], smi)
+    best = check_history("cv-train", result, CV_EPOCHS)
+    test = datasets["test"]
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("cues_video", cfg), best, CV_BATCH, device=DEVICE)
+    check_served_accuracy("cv-train", predictor.predict_logits(*test.inputs), test.labels, result["final_test_acc"])
+
+    train_ds = datasets["train"]
+    trainer = timing_trainer(get_cues_video_model(CV_MODEL, len(WORDS)), CV_MODEL, CV_BATCH, CV_LR, CV_WD,
+                                    tmp, seed)
+    log_train_measures("cv-train", train_measures(trainer, train_ds, seed),
+                       f"B={CV_BATCH} ({CV_BATCH * lips.shape[1]} frames)", len(train_ds),
+                       "cue embeddings + uint8 lips", smi)
+    del trainer
+    check_first_steps("cv-train", train_ds, tmp, seed, CV_LR, CV_DRIFT_RTOL, batch_size=CV_BATCH,
+                      pipeline="cues_video", model_name=CV_MODEL)
+    return {"cfg": cfg, "best": best, "root": root, "lip_root": lip_root, "tmp": tmp, "datasets": datasets,
+            "final_test_acc": result["final_test_acc"]}
+
+
+def read_texts(paths: list) -> list:
+    texts = []
+    for p in paths:
+        with open(p, encoding="utf-8") as f:
+            texts.append(f.read().strip())
+    return texts
+
+
+def fusion_request_breakdown(net: torch.nn.Module, group: list, audio: bool) -> dict:
+    """Milliseconds of each stage of one cues_video (``audio`` false: cue
+    text, lips) or audio_cues_video (WAV, cue text, lips) request: on the
+    host clock the WAV decode, reading and embedding the cue texts
+    (``HashingEmbedder``, the backend wherever the sentence-transformers
+    weights are absent) and the ``.npy`` load; on the card's timeline (CUDA
+    events) the log-mel kernel, the copies to the card (waves, embeddings,
+    uint8 lips), the forward (lips scaled to [0, 1] included) and the copy
+    of the logits back; ``device idle`` is the share of the wall time
+    outside the card's stages."""
+    from multimodal_lipread_torch.data.cues import EMBED_DIMS, HashingEmbedder
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    totals: dict = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    embedder = HashingEmbedder(EMBED_DIMS["mpnet"])
+    with torch.inference_mode(), model_precision(torch.float32):
+        for _ in range(BREAKDOWN_ITERS):
+            stages = {}
+            t0 = time.perf_counter()
+            if audio:
+                waves = decode_waveforms([g[0] for g in group])
+                stages["WAV decode"] = (time.perf_counter() - t0) * 1e3
+                ev[0].record()
+                wave = torch.from_numpy(waves).to(DEVICE)
+                ev[1].record()
+                mel = logmel_cuda.log_mel(wave, True)[:, :80, :ACV_INPUT_SIZE]
+                ev[2].record()
+            t1 = time.perf_counter()
+            emb = embedder.encode(read_texts([g[-2] for g in group]))
+            t2 = time.perf_counter()
+            lips = load_lip_sequences([g[-1] for g in group])
+            t3 = time.perf_counter()
+            ev[3].record()
+            cue, x = torch.from_numpy(emb).to(DEVICE), torch.from_numpy(lips).to(DEVICE)
+            ev[4].record()
+            lip = x.to(torch.float32) / 255.0
+            logits = net(mel, cue, lip) if audio else net(cue, lip)
+            ev[5].record()
+            logits.cpu()
+            ev[6].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if audio:
+                stages["log-mel kernel"] = ev[1].elapsed_time(ev[2])
+            stages["read + embed"], stages["npy load"] = (t2 - t1) * 1e3, (t3 - t2) * 1e3
+            stages["H2D"] = ev[3].elapsed_time(ev[4]) + (ev[0].elapsed_time(ev[1]) if audio else 0.0)
+            stages["forward"], stages["D2H"] = ev[4].elapsed_time(ev[5]), ev[5].elapsed_time(ev[6])
+            busy = sum(stages[k] for k in ("log-mel kernel", "H2D", "forward", "D2H") if k in stages)
+            stages["device idle %"] = 100.0 * (1.0 - busy / (wall * 1e3))
+            for k, v in stages.items():
+                totals[k] = totals.get(k, 0.0) + v / BREAKDOWN_ITERS
+    return totals
+
+
+def fusion_request_groups(run: dict, audio: bool, count: int) -> list:
+    """``count`` test clips of the shared corpus as request groups: the cue
+    text written to a file, with the clip's WAV first for audio_cues_video
+    and its lip ``.npy`` last; returns them and their labels."""
+    from multimodal_lipread_torch.data.cues import load_cue_records, records_by_key
+    from multimodal_lipread_torch.data.glips import align_modalities, scan_glips, scan_lip_regions
+
+    cue_map = records_by_key(load_cue_records(run["root"], "emotion"))
+    pairs = [(a, v) for a, v in align_modalities(scan_glips(run["root"]), scan_lip_regions(run["lip_root"]),
+                                                 split="test") if a.key in cue_map][:count]
+    texts = write_cue_texts(os.path.join(run["tmp"], "requests"), [cue_map[a.key].description for a, _v in pairs])
+    groups = [([a.path] if audio else []) + [t, v.path] for (a, v), t in zip(pairs, texts)]
+    return groups, np.asarray([WORDS.index(a.word) for a, _v in pairs])
+
+
+def phase_cv_serve(cv: dict, device_info: dict) -> None:
+    from multimodal_lipread_torch import serving
+
+    smi, cfg, best = device_info["smi"], cv["cfg"], cv["best"]
+    groups, labels = fusion_request_groups(cv, False, CV_REQUEST * CV_REQUESTS)
+    requests = [groups[i : i + CV_REQUEST] for i in range(0, len(groups), CV_REQUEST)]
+    served, predictor, _ = serve_requests("cv-serve", "cues_video", cfg, best, requests, CV_REQUEST,
+                                          "cue read + embedding + .npy load", smi, api_requests=2)
+    log_breakdown("cv-serve", fusion_request_breakdown(predictor.model, requests[0], audio=False),
+                  len(requests[0]), smi)
+    check_served_accuracy("cv-serve", served["resident"][0], labels, cv["final_test_acc"])
+    inputs = serving._featurize_modalities("cues_video", cfg, groups, device="cpu")
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("cues_video", cfg), best, CV_REQUEST, device="cpu")
+    check_served("cv-serve", served, {"the CPU": cpu.predict_logits(*inputs)})
+
+
+def phase_acv_train(seed: int, device_info: dict, cv: dict) -> dict:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.cues import load_cue_records, records_by_key
+    from multimodal_lipread_torch.data.glips import align_modalities, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.models.audio_cues_video import get_triple_model
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines import audio_cues_video as acv_pipeline
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+
+    smi, root, lip_root = device_info["smi"], cv["root"], cv["lip_root"]
+    tmp = os.path.join(os.path.dirname(cv["tmp"]), "acv")
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    datasets, classes = acv_pipeline.load_triple_datasets(root, root, lip_root, input_size=ACV_INPUT_SIZE,
+                                                          device=DEVICE)
+    load_s = time.perf_counter() - t0
+    featurize_launches = logmel_cuda.launch_count
+    mels, cue_emb, lips = datasets["train"].inputs
+    log("acv-train", f"[cv-train]'s corpus with its audio: {sum(len(d) for d in datasets.values())} aligned wav + "
+                     f"cue + .npy clips, {len(datasets['train'])} per split, classes {classes} (the audio index's); "
+                     f"mels {mels.shape} {mels.dtype}, cue embeddings {cue_emb.shape}, lips {lips.shape} {lips.dtype}; "
+                     f"load_triple_datasets (decode, log-mel on the card, read + hashing mpnet embedding, np.load) "
+                     f"{load_s * 1e3:.2f} ms with {featurize_launches} log-mel kernel launches")
+    if featurize_launches < 1:
+        raise SystemExit("the audio_cues_video featurization never launched the log-mel kernel")
+    cue_map = records_by_key(load_cue_records(root, "emotion"))
+    pairs = [(a, v) for a, v in align_modalities(scan_glips(root), scan_lip_regions(lip_root), split="train")
+             if a.key in cue_map]
+    wave = torch.from_numpy(decode_waveforms([a.path for a, _v in pairs])).to(DEVICE)
+    want = log_mel_reference(wave, True)[:, :80, :ACV_INPUT_SIZE].cpu().numpy()
+    max_err = float(np.abs(mels - want).max())
+    ok = mels.shape == want.shape and bool(np.isfinite(mels).all()) and max_err <= KERNEL_TOL
+    log("acv-train", f"featurized mels vs plain-version features: max abs err {max_err:.3e} "
+                     f"(tolerance {KERNEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the audio_cues_video featurization disagrees with the plain log-mel")
+
+    cfg = fusion_config(root, os.path.join(tmp, "run"), seed, ACV_MODEL, ACV_BATCH, ACV_LR, ACV_WD, ACV_EPOCHS)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    result = acv_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = logmel_cuda.launch_count
+    n_params = sum(p.numel() for p in get_triple_model(ACV_MODEL, len(WORDS)).parameters())
+    log("acv-train", f"pipelines.audio_cues_video.main: {ACV_MODEL} (ResNet18 over the 1 x 80 x {ACV_INPUT_SIZE} "
+                     f"log-mel, MobileNetV2 over 29 frames + BiLSTM 2 x 128, 2 layers, the plain cue MLP; "
+                     f"per-modality logits fused by ModalityAttentionFusion; {n_params} parameters), float32, "
+                     f"batch {ACV_BATCH}, lr {ACV_LR:g}, wd {ACV_WD:g}, {ACV_EPOCHS} epochs in {wall:.2f} s "
+                     f"(featurization, model build, training, evaluation, checkpoints); log-mel kernel launches: "
+                     f"{launches}")
+    if launches < 1:
+        raise SystemExit("audio_cues_video training never launched the log-mel kernel")
+    log_epochs("acv-train", result["history"], smi)
+    best = check_history("acv-train", result, ACV_EPOCHS)
+    if not os.path.isfile(os.path.join(os.path.dirname(best), f"{ACV_MODEL}_checkpoint.pt")):
+        raise SystemExit("[acv-train] no rolling checkpoint")
+    test = datasets["test"]
+    predictor = serving.Predictor.from_checkpoint(serving.build_model("audio_cues_video", cfg), best, ACV_BATCH,
+                                                  device=DEVICE)
+    check_served_accuracy("acv-train", predictor.predict_logits(*test.inputs), test.labels, result["final_test_acc"])
+
+    train_ds = datasets["train"]
+    trainer = timing_trainer(get_triple_model(ACV_MODEL, len(WORDS)), ACV_MODEL, ACV_BATCH, ACV_LR, ACV_WD,
+                                    tmp, seed)
+    log_train_measures("acv-train", train_measures(trainer, train_ds, seed),
+                       f"B={ACV_BATCH} ({ACV_BATCH * lips.shape[1]} frames)", len(train_ds),
+                       "mels + cue embeddings + uint8 lips", smi)
+    del trainer
+    check_first_steps("acv-train", train_ds, tmp, seed, ACV_LR, ACV_DRIFT_RTOL, batch_size=ACV_BATCH,
+                      pipeline="audio_cues_video", model_name=ACV_MODEL)
+    return {"cfg": cfg, "best": best, "root": root, "lip_root": lip_root, "tmp": tmp, "datasets": datasets,
+            "final_test_acc": result["final_test_acc"], "launches": featurize_launches + launches,
+            "max_abs_err": max_err}
+
+
+def phase_acv_serve(acv: dict, device_info: dict) -> int:
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.ops.logmel import log_mel_reference
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    smi, cfg, best = device_info["smi"], acv["cfg"], acv["best"]
+    groups, labels = fusion_request_groups(acv, True, ACV_REQUEST * ACV_REQUESTS)
+    requests = [groups[i : i + ACV_REQUEST] for i in range(0, len(groups), ACV_REQUEST)]
+    served, predictor, launches = serve_requests(
+        "acv-serve", "audio_cues_video", cfg, best, requests, ACV_REQUEST,
+        "WAV decode + log-mel kernel + cue embedding + .npy load", smi, api_requests=2, kernel=True)
+    log_breakdown("acv-serve", fusion_request_breakdown(predictor.model, requests[0], audio=True),
+                  len(requests[0]), smi)
+    check_served_accuracy("acv-serve", served["resident"][0], labels, acv["final_test_acc"])
+    waves = torch.from_numpy(decode_waveforms([g[0] for g in groups])).to(DEVICE)
+    plain = log_mel_reference(waves, True)[:, :80, :ACV_INPUT_SIZE].cpu().numpy()
+    _mel, cue, lips = serving._featurize_modalities("audio_cues_video", cfg, groups, device="cpu")
+    cpu = serving.Predictor.from_checkpoint(serving.build_model("audio_cues_video", cfg), best, ACV_REQUEST,
+                                            device="cpu")
+    with model_precision(torch.float32):
+        ref_cpu = cpu.predict_logits(plain, cue, lips)
+    check_served("acv-serve", served, {"plain-version features on the card": predictor.predict_logits(plain, cue, lips),
+                                       "the CPU": ref_cpu})
+    return launches
+
+
+def phase_frozen(seed: int, device_info: dict, acv: dict) -> int:
+    """acv_config's recipe on ``early_fusion_mobile`` (audio ResNet18 and
+    video MobileNetV2 frozen) through ``pipelines.audio_cues_video.main``,
+    three ways: (a) ``training.frozen_bn_eval``, (b)
+    ``training.cache_frozen_features``, (c) the default. Every frozen
+    parameter must end bit-equal to its value when ``fit`` began; the frozen
+    BatchNorms' running statistics must move in (c) only; (b)'s per-step
+    losses must equal (a)'s to ``FROZEN_RTOL``. Returns the log-mel kernel's
+    launches."""
+    from multimodal_lipread_torch.models.audio_cues_video import FROZEN_PARAM_PREFIXES
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio_cues_video as acv_pipeline
+    from multimodal_lipread_torch.train.frozen_cache import cached_dataset
+    from multimodal_lipread_torch.train.trainer import Trainer
+
+    smi = device_info["smi"]
+    prefixes = tuple(".".join(p) + "." for p in FROZEN_PARAM_PREFIXES[FROZEN_MODEL])
+    fit, train_step = Trainer.fit, Trainer.train_step
+    runs, launches = {}, 0
+    for tag, training in (("a", {"frozen_bn_eval": True}), ("b", {"cache_frozen_features": True}), ("c", {})):
+        seen: dict = {"steps": []}
+
+        def capture_fit(self, *args, **kwargs):
+            seen["trainer"] = self
+            seen["initial"] = {k: v.clone() for k, v in self.model.state_dict().items() if k.startswith(prefixes)}
+            return fit(self, *args, **kwargs)
+
+        def capture_step(self, *args, **kwargs):
+            stats = train_step(self, *args, **kwargs)
+            seen["steps"].append(stats)
+            return stats
+
+        cfg = fusion_config(acv["root"], os.path.join(acv["tmp"], f"frozen_{tag}"), seed, FROZEN_MODEL, ACV_BATCH,
+                            ACV_LR, ACV_WD, FROZEN_EPOCHS, **training)
+        Trainer.fit, Trainer.train_step = capture_fit, capture_step
+        logmel_cuda.launch_count = 0
+        try:
+            t0 = time.perf_counter()
+            result = acv_pipeline.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            Trainer.fit, Trainer.train_step = fit, train_step
+        launches += logmel_cuda.launch_count
+        trainer = seen["trainer"]
+        losses = np.asarray([(t[0] / t[3]).item() for t in seen["steps"]])
+        final = {k: v for k, v in trainer.model.state_dict().items() if k.startswith(prefixes)}
+        params = set(trainer.frozen_names())
+        stats = [k for k in final if "running_" in k]
+        params_equal = sorted(params) == sorted(k for k in final if k in params) and all(
+            torch.equal(final[k], seen["initial"][k]) for k in params)
+        stats_moved = sum(not torch.equal(final[k], seen["initial"][k]) for k in stats)
+        hist = result["history"]
+        log("frozen", f"({tag}) {FROZEN_MODEL} {training or 'default'}: main in {wall:.2f} s, {len(losses)} steps, "
+                      f"epoch train losses {[round(h['train_loss'], 4) for h in hist]}, {len(params)} frozen "
+                      f"parameters bit-equal to their start: {params_equal}; frozen BatchNorm statistics moved: "
+                      f"{stats_moved} of {len(stats)}; log-mel kernel launches {logmel_cuda.launch_count}")
+        if not params_equal or not np.isfinite(losses).all() or len(hist) != FROZEN_EPOCHS:
+            raise SystemExit(f"[frozen] ({tag}) a frozen parameter moved, or the run did not finish")
+        if (stats_moved > 0) != (tag == "c"):
+            raise SystemExit(f"[frozen] ({tag}) the frozen BatchNorms' running statistics "
+                             f"{'did not move' if tag == 'c' else 'moved'}")
+        ds = acv["datasets"]["train"]
+        if tag == "b":  # the features the run trained on
+            ds = cached_dataset(trainer, ds, lambda raw, f: (f[0], raw[1], f[1]))
+        batch = next(trainer.batches(ds, True, np.random.default_rng(seed)))
+        runs[tag] = {"losses": losses,
+                     "step_ms": cuda_ms(lambda: trainer.train_step(*batch), warmup=3, iters=STEP_ITERS)}
+        del trainer, seen
+    rel = np.abs(runs["b"]["losses"] / runs["a"]["losses"] - 1.0)
+    ok = runs["a"]["losses"].shape == runs["b"]["losses"].shape and bool(np.all(rel <= FROZEN_RTOL))
+    log("frozen", f"(b) cached against (a) frozen_bn_eval, per step over {len(rel)} steps: largest relative "
+                  f"difference {rel.max():.3e} (tolerance {FROZEN_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    log("frozen", f"train step at B={ACV_BATCH} (CUDA events, mean of {STEP_ITERS}): (a) with the frozen forward "
+                  f"{runs['a']['step_ms']:.3f} ms, (b) on cached features {runs['b']['step_ms']:.3f} ms, (c) "
+                  f"{runs['c']['step_ms']:.3f} ms | {smi}")
+    if not ok:
+        raise SystemExit("[frozen] the cached run's losses differ from the frozen_bn_eval run's")
+    return launches
+
+
 def cue_zoo_inputs(cues: dict) -> dict:
     """Each cue embedding kind's features of ``CUES_BATCH`` [cues-train]
     records taken from the words in turn (the first rows, which [zoo]
@@ -1682,12 +2091,12 @@ def cue_zoo_inputs(cues: dict) -> dict:
     return {"feats": feats, "labels": labels}
 
 
-def zoo_trainer(name: str, model: torch.nn.Module, batch: int, tmp: str, seed: int):
+def zoo_trainer(name: str, model: torch.nn.Module, batch: int, tmp: str, seed: int, frozen: tuple = ()):
     from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
     trainer = Trainer(model, TrainerConfig(
         model_name=name, num_classes=len(WORDS), batch_size=batch, learning_rate=1e-4, seed=seed, host_prefetch=0,
-        metrics_dir=os.path.join(tmp, "zoo", name, "m"), checkpoints_dir=os.path.join(tmp, "zoo", name, "c")),
+        frozen_param_prefixes=frozen, metrics_dir=os.path.join(tmp, "zoo", name, "m"), checkpoints_dir=os.path.join(tmp, "zoo", name, "c")),
         device=DEVICE)
     trainer.init_state()
     return trainer
@@ -1725,8 +2134,10 @@ def zoo_step(trainer, inputs: tuple, labels: np.ndarray, tol: float = LOGITS_TOL
             "scale": float(np.abs(cpu).max()), "params": sum(p.numel() for p in model.parameters())}
 
 
-def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str, cues: dict, ac: dict) -> None:
+def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str, cues: dict, ac: dict, cv: dict,
+              acv: dict) -> None:
     from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.models import audio_cues_video, cues_video
     from multimodal_lipread_torch.models.audio import get_audio_model
     from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
     from multimodal_lipread_torch.models.cues import cue_embedding_kind, get_cue_model
@@ -1764,12 +2175,20 @@ def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str,
              + [("cues", n, lambda n=n: get_cue_model(n, len(WORDS), bert_size="base",
                                                      input_dim=cue_in["feats"][cue_embedding_kind(n)].shape[-1]),
                  (cue_in["feats"][cue_embedding_kind(n)],), cue_in["labels"]) for n in ZOO_CUES]
-             + [("audio_cues", n, lambda n=n: get_audio_cues_model(n, len(WORDS)), ac_in, ac_labels) for n in ZOO_AC])
+             + [("audio_cues", n, lambda n=n: get_audio_cues_model(n, len(WORDS)), ac_in, ac_labels) for n in ZOO_AC]
+             + [("cues_video", n, lambda n=n: cues_video.get_cues_video_model(n, len(WORDS)),
+                 tuple(x[:CV_BATCH] for x in cv["datasets"]["train"].inputs), cv["datasets"]["train"].labels)
+                for n in ZOO_CV]
+             + [("audio_cues_video", n, lambda n=n: audio_cues_video.get_triple_model(n, len(WORDS)),
+                 tuple(x[:ACV_BATCH] for x in acv["datasets"]["train"].inputs), acv["datasets"]["train"].labels)
+                for n in ZOO_ACV])
+    frozen = {"cues_video": cues_video.FROZEN_PARAM_PREFIXES,
+              "audio_cues_video": audio_cues_video.FROZEN_PARAM_PREFIXES}
     bad = []
     for kind, name, build, inputs, case_labels in cases:
         batch = len(inputs[0])
         trainer = grafted if name == "early_fusion_resnet" and kind == "audio_video" else zoo_trainer(
-            f"{kind}_{name}", build(), batch, tmp, seed)
+            f"{kind}_{name}", build(), batch, tmp, seed, frozen.get(kind, {}).get(name, ()))
         bf16 = trainer.compute_dtype == torch.bfloat16
         tol = BF16_LOGITS_TOL if bf16 else LOGITS_TOL
         from_trained = ""
@@ -1801,27 +2220,36 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
-    device_info = phase_device()
-    phase_build()
-    kernel = phase_kernel(args.seed)
-    launches = phase_serve(args.seed, device_info)
-    train = phase_train(args.seed, device_info)
+    t_run = time.perf_counter()
+    device_info = timed("device", phase_device)
+    timed("build", phase_build)
+    seed = args.seed
+    kernel = timed("kernel", phase_kernel, seed)
+    launches = timed("serve", phase_serve, seed, device_info)
+    train = timed("train", phase_train, seed, device_info)
     launches += train["launches"]
     tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_video_")
     try:
-        video = phase_video_train(args.seed, device_info, tmp)
-        phase_video_serve(video, device_info)
-        av = phase_av_train(args.seed, device_info, tmp)
+        video = timed("video-train", phase_video_train, seed, device_info, tmp)
+        timed("video-serve", phase_video_serve, video, device_info)
+        av = timed("av-train", phase_av_train, seed, device_info, tmp)
         launches += av["launches"]
-        launches += phase_av_serve(av, device_info)
-        cues = phase_cues_train(args.seed, device_info, tmp)
-        phase_cues_serve(cues, device_info)
-        ac = phase_ac_train(args.seed, device_info, tmp)
+        launches += timed("av-serve", phase_av_serve, av, device_info)
+        cues = timed("cues-train", phase_cues_train, seed, device_info, tmp)
+        timed("cues-serve", phase_cues_serve, cues, device_info)
+        ac = timed("ac-train", phase_ac_train, seed, device_info, tmp)
         launches += ac["launches"]
-        launches += phase_ac_serve(ac, device_info)
-        phase_zoo(args.seed, device_info, av, video["best"], tmp, cues, ac)
+        launches += timed("ac-serve", phase_ac_serve, ac, device_info)
+        cv = timed("cv-train", phase_cv_train, seed, device_info, tmp)
+        timed("cv-serve", phase_cv_serve, cv, device_info)
+        acv = timed("acv-train", phase_acv_train, seed, device_info, cv)
+        launches += acv["launches"]
+        launches += timed("acv-serve", phase_acv_serve, acv, device_info)
+        launches += timed("frozen", phase_frozen, seed, device_info, acv)
+        timed("zoo", phase_zoo, seed, device_info, av, video["best"], tmp, cues, ac, cv, acv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("run", f"all phases in {time.perf_counter() - t_run:.1f} s")
     row = kernel["rows"][SERVE_BATCH]
     print(json.dumps({"kernels": [{
         "name": "logmel",
@@ -1829,13 +2257,14 @@ def main(argv=None) -> int:
         "source": "multimodal_lipread_torch/csrc/logmel.cu",
         "replaces": "multimodal_lipread_tpu/ops/logmel_pallas.py:107",
         "launches": launches,
-        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"], av["max_abs_err"], ac["max_abs_err"]),
+        "max_abs_err": max(kernel["max_abs_err"], train["max_abs_err"], av["max_abs_err"], ac["max_abs_err"],
+                           acv["max_abs_err"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
-        "paths": ["serve", "train", "av-train", "av-serve", "ac-train", "ac-serve"],
+        "paths": ["serve", "train", "av-train", "av-serve", "ac-train", "ac-serve", "acv-train", "acv-serve", "frozen"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -7,7 +7,9 @@ package's ``nn/attention.py``).
   for self-attention, written from ``linear``, ``matmul`` and ``softmax``;
 - ``MultiHeadSelfAttention``, ``TransformerEncoderLayer`` (torch's post-LN
   layer with a ReLU FFN, as the JAX module writes it) and
-  ``TransformerEncoder``.
+  ``TransformerEncoder``;
+- ``SingleQueryAttention``: one query vector per example attends over a
+  (B, T, D) sequence (the cues_video fusion models).
 
 ``torch.nn.MultiheadAttention`` and ``nn.TransformerEncoderLayer`` are not
 used: they pack their projections in one tensor, take LayerNorm's epsilon
@@ -18,8 +20,6 @@ their kernels as (D, heads, head_dim) and (heads, head_dim, D);
 ``utils/jax_bridge.py`` reshapes them), dropout is the port's ``Dropout``
 and LayerNorm the port's, at 1e-6. Sequences are short (29 frames), so the
 attention is plain products: the JAX package has no kernel for it either.
-
-``SingleQueryAttention`` comes with the cues_video slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -116,6 +116,26 @@ class MultiHeadDotProductAttention(nn.Module):
         weights = self.dropout(torch.softmax(logits, dim=-1))
         out = (weights @ v).transpose(1, 2).reshape(b, t, d)
         return linear(self.out, out)
+
+
+class SingleQueryAttention(nn.Module):
+    """One query vector (B, D) attends over a sequence (B, T, D): learned
+    ``query``/``key``/``value`` Linears (plain 2-D Dense kernels in the JAX
+    tree), scores q·k scaled by dim^-0.5, softmax over T, and the weighted
+    sum of the values → (B, dim)."""
+
+    def __init__(self, query_dim: int, seq_dim: int, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.query = nn.Linear(query_dim, dim)
+        self.key = nn.Linear(seq_dim, dim)
+        self.value = nn.Linear(seq_dim, dim)
+
+    def forward(self, query_vec: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+        q = linear(self.query, query_vec)  # (B, D)
+        k, v = linear(self.key, seq), linear(self.value, seq)  # (B, T, D)
+        scores = torch.einsum("bd,btd->bt", q, k) * (self.dim ** -0.5)
+        return torch.einsum("bt,btd->bd", torch.softmax(scores, dim=-1), v)
 
 
 class MultiHeadSelfAttention(nn.Module):

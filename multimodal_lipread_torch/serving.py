@@ -1,5 +1,6 @@
-"""Inference / serving of the audio, video, audio_video, cues and
-audio_cues pipelines (counterpart of the JAX package's ``serving.py``).
+"""Inference / serving of the seven pipelines: audio, video, audio_video,
+cues, audio_cues, cues_video and audio_cues_video (counterpart of the JAX
+package's ``serving.py``).
 
 - ``Predictor``: a trained model from a checkpoint, in eval mode on one
   device; serves any number of inputs in fixed-size batches, padding the
@@ -17,20 +18,25 @@ audio_cues pipelines (counterpart of the JAX package's ``serving.py``).
   (token ids for BERT, cached sentence or token embeddings otherwise; the
   TF-IDF ``linear`` model fits its vocabulary on the training corpus and
   is refused, as in the JAX package); for ``audio_cues`` a WAV and a text
-  file per clip (log-mel kernel and ``dataset.embed_model`` embeddings).
+  file per clip (log-mel kernel and ``dataset.embed_model`` embeddings);
+  for ``cues_video`` a text file and a ``.npy`` per clip, for
+  ``audio_cues_video`` a WAV, a text file and a ``.npy`` (the JAX order of
+  ``_PIPELINE_INPUTS``).
 - a CLI: ``python -m multimodal_lipread_torch.serving --pipeline
-  audio|video|audio_video|cues|audio_cues --config <yaml> --checkpoint
-  <path> <clips...>`` → JSON predictions (WAV files for audio, lip-region
-  ``.npy`` files for video, ``clip.wav,clip.npy`` groups for audio_video,
-  cue ``.txt`` files for cues, ``clip.wav,cue.txt`` groups for audio_cues).
+  <pipeline> --config <yaml> --checkpoint <path> <clips...>`` → JSON
+  predictions (WAV files for audio, lip-region ``.npy`` files for video,
+  ``clip.wav,clip.npy`` groups for audio_video, cue ``.txt`` files for
+  cues, ``clip.wav,cue.txt`` groups for audio_cues, ``cue.txt,lips.npy``
+  groups for cues_video, ``clip.wav,cue.txt,lips.npy`` groups for
+  audio_cues_video).
 
 The audio features are taken at the time steps the pipeline's training
 reads: ``dataset.audio_input_size`` for audio_video (the JAX package's
 serving reads ``dataset.input_size`` there; ROADMAP.md Queue 3 notes it),
-``dataset.input_size`` for audio_cues.
+``dataset.input_size`` for audio_cues and audio_cues_video.
 
-Not ported yet (ROADMAP.md): data-parallel serving, graph export, the
-cues_video and audio_cues_video pipelines, ``device_preproc``.
+Not ported yet (ROADMAP.md): data-parallel serving, graph export,
+``device_preproc``.
 """
 
 from __future__ import annotations
@@ -167,7 +173,7 @@ def predict_audio_clips(
     ]
 
 
-PIPELINES = ("audio", "video", "audio_video", "cues", "audio_cues")
+PIPELINES = ("audio", "video", "audio_video", "cues", "audio_cues", "cues_video", "audio_cues_video")
 # per-pipeline input modalities, in the model's order: 'a' = audio clip
 # path, 'v' = lip-region .npy path, 'c' = cue text file (the JAX package's)
 _PIPELINE_INPUTS = {
@@ -179,13 +185,6 @@ _PIPELINE_INPUTS = {
     "cues_video": "cv",
     "audio_cues_video": "acv",
 }
-
-
-def _unported(pipeline: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"pipeline '{pipeline}' is not ported to PyTorch yet; ported: {', '.join(PIPELINES)} "
-        "(see ROADMAP.md, Queue 1 #9.4-9.5)"
-    )
 
 
 def build_model(pipeline: str, config: Any) -> nn.Module:
@@ -224,13 +223,22 @@ def build_model(pipeline: str, config: Any) -> nn.Module:
 
         return get_audio_cues_model(config.get("model.name", "middle_fusion_mobile"),
                                     config.get("dataset.num_classes", 4), dtype=model_dtype(config))
-    if pipeline in _PIPELINE_INPUTS:
-        raise _unported(pipeline)
-    raise ValueError(f"unknown pipeline '{pipeline}' (one of {tuple(_PIPELINE_INPUTS)})")
+    if pipeline == "cues_video":
+        from multimodal_lipread_torch.models.cues_video import get_cues_video_model
+
+        name = config.get("train.model_name") or config.get("model.name") or "middle_fusion_mobile"
+        return get_cues_video_model(name, config.get("dataset.num_classes", 4), dtype=model_dtype(config))
+    if pipeline == "audio_cues_video":
+        from multimodal_lipread_torch.models.audio_cues_video import get_triple_model
+
+        name = config.get("train.model_name") or config.get("model.name") or "late_fusion_mobile"
+        return get_triple_model(name, config.get("dataset.num_classes", 4), dtype=model_dtype(config))
+    raise ValueError(f"unknown pipeline '{pipeline}' (one of {PIPELINES})")
 
 
 # the key of the log-mel width that each pipeline's training reads
-_AUDIO_INPUT_KEY = {"audio_video": "dataset.audio_input_size", "audio_cues": "dataset.input_size"}
+_AUDIO_INPUT_KEY = {"audio_video": "dataset.audio_input_size", "audio_cues": "dataset.input_size",
+                    "audio_cues_video": "dataset.input_size"}
 
 
 def _cue_features(pipeline: str, config: Any, paths: Sequence[str]) -> np.ndarray:
@@ -274,7 +282,7 @@ def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[
     if pipeline == "audio":
         raise ValueError("audio uses predict_audio_clips (streaming-aware)")
     if pipeline not in PIPELINES:
-        raise _unported(pipeline)
+        raise ValueError(f"unknown pipeline '{pipeline}' (one of {PIPELINES})")
     codes = _PIPELINE_INPUTS[pipeline]
     for g in groups:
         if len(g) != len(codes):
@@ -349,8 +357,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from multimodal_lipread_torch.config import load_config
 
     parser = argparse.ArgumentParser(
-        description="Serve a checkpoint of the PyTorch port (audio, video, audio_video, cues, audio_cues): "
-                    "classify clips",
+        description="Serve a checkpoint of the PyTorch port (any of its seven pipelines): classify clips",
     )
     parser.add_argument("--pipeline", default="audio", choices=PIPELINES)
     parser.add_argument("--config", required=True)
@@ -360,7 +367,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("clips", nargs="+",
                         help="files to classify: WAV clips (audio), lip-region .npy files (video), "
                              "comma-separated 'clip.wav,clip.npy' groups (audio_video), cue .txt files (cues), "
-                             "or 'clip.wav,cue.txt' groups (audio_cues)")
+                             "'clip.wav,cue.txt' groups (audio_cues), 'cue.txt,lips.npy' groups (cues_video) "
+                             "or 'clip.wav,cue.txt,lips.npy' groups (audio_cues_video)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
     results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],

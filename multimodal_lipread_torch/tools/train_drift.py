@@ -1,7 +1,8 @@
 """How far float32 training trajectories part, on the card and the CPU,
 from a float64 run of the same steps.
 
-    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video|audio_video|cues|audio_cues]
+    python -m multimodal_lipread_torch.tools.train_drift [--pipeline audio|video|audio_video|cues|audio_cues|
+        cues_video|audio_cues_video]
         [--model NAME] [--lrs 5e-4 3e-5 1e-5] [--steps 3] [--seeds 0 ...] [--no-cpu]
 
 For each of ``--seeds`` it writes the port's synthetic corpus from the
@@ -17,7 +18,12 @@ kernel, lips uint8) and the model ``middle_fusion_mobilenet``
 and split 90/10 as ``pipelines.cues`` splits them, as token ids, and
 ``bert`` at bert-base width at batch 8; for ``--pipeline audio_cues`` 68
 clips per split (log-mel by the kernel, hashed mpnet cue embeddings) and
-``middle_fusion_mobile`` (ac_config.yaml's) at batch 32. From one
+``middle_fusion_mobile`` (ac_config.yaml's) at batch 32; for ``--pipeline
+cues_video`` 32 aligned clips per split (hashed mpnet cue embeddings, lips
+uint8) and ``middle_fusion_resnet`` (cv_config.yaml's) at batch 8; for
+``--pipeline audio_cues_video`` 32 aligned clips per split (log-mel by the
+kernel, cue embeddings, lips uint8) and ``late_fusion_mobile``
+(acv_config.yaml's) at batch 8. From one
 Flax-style initialization from the seed (dropout 0) it takes the first
 ``--steps`` training steps of the full-width model on the same batches: in
 float64 on the card (the reference), in float32 on the card (TF32 off, as
@@ -52,6 +58,8 @@ PIPELINES = {
     "audio_video": dict(model="middle_fusion_mobilenet", batch=8, weight_decay=0.0, clips=32, lrs=[1e-4, 1e-5]),
     "cues": dict(model="bert", batch=8, weight_decay=0.0, clips=32, lrs=[5e-5, 1e-5]),
     "audio_cues": dict(model="middle_fusion_mobile", batch=32, weight_decay=0.0, clips=68, lrs=[1e-3, 1e-5]),
+    "cues_video": dict(model="middle_fusion_resnet", batch=8, weight_decay=1e-5, clips=32, lrs=[1e-4, 1e-5]),
+    "audio_cues_video": dict(model="late_fusion_mobile", batch=8, weight_decay=1e-5, clips=32, lrs=[1e-5]),
 }
 
 
@@ -78,6 +86,14 @@ def build(pipeline: str, model: str, version: int = 16) -> torch.nn.Module:
         from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
 
         return _no_dropout(get_audio_cues_model(model, NUM_CLASSES))
+    if pipeline == "cues_video":
+        from multimodal_lipread_torch.models.cues_video import get_cues_video_model
+
+        return _no_dropout(get_cues_video_model(model, NUM_CLASSES))
+    if pipeline == "audio_cues_video":
+        from multimodal_lipread_torch.models.audio_cues_video import get_triple_model
+
+        return _no_dropout(get_triple_model(model, NUM_CLASSES))
     if pipeline == "audio":
         from multimodal_lipread_torch.models.audio import VGGWithLSTMClassifier
 
@@ -107,7 +123,7 @@ def first_steps(ds: ArrayDataset, device: str, dtype: torch.dtype, lr: float, st
     if dtype != torch.float32:  # the same initial weights, widened
         model.to(dtype)
         model.dtype = trainer.compute_dtype = dtype
-        trainer.optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        trainer.optimizer = torch.optim.Adam(trainer.trainable_parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                              weight_decay=wd)
 
     def widen(x: torch.Tensor) -> torch.Tensor:
@@ -164,6 +180,17 @@ def train_split(pipeline: str, root: str, seed: int) -> ArrayDataset:
         return common.load_audio_datasets(root, splits=("train",), device="cuda")[0]["train"]
     from multimodal_lipread_torch.data.glips import lip_regions_root
 
+    if pipeline == "cues_video":
+        from multimodal_lipread_torch.pipelines.cues_video import load_cue_video_datasets
+
+        make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_audio=False, with_lip_regions=True,
+                             with_cues=True)
+        return load_cue_video_datasets(root, lip_regions_root(root), splits=("train",))[0]["train"]
+    if pipeline == "audio_cues_video":
+        from multimodal_lipread_torch.pipelines.audio_cues_video import load_triple_datasets
+
+        make_synthetic_glips(root, clips_per_split=clips, seed=seed, with_lip_regions=True, with_cues=True)
+        return load_triple_datasets(root, root, lip_regions_root(root), splits=("train",), device="cuda")[0]["train"]
     if pipeline == "audio_video":
         from multimodal_lipread_torch.pipelines.audio_video import load_av_datasets
 

@@ -21,6 +21,16 @@
   data RNG fast-forwarded one permutation per completed epoch, the dropout
   generator), and the final test on the reloaded best checkpoint.
 
+``frozen_param_prefixes`` freezes parameter subtrees as the JAX trainer
+does: a JAX path prefix such as ``("video_encoder", "cnn")`` names the
+``state_dict`` prefix ``video_encoder.cnn.``; its parameters are left out of
+Adam (a literal zero update, weight decay included, and no moments in the
+optimizer's state or the checkpoint) and compute no gradient. BatchNorm
+running statistics under it are buffers, not parameters: they still move
+whenever the module runs in train mode, as the JAX ``batch_stats`` do.
+``set_apply_kwargs`` adds keyword arguments to every forward (e.g.
+``cached_features=True`` after ``train/frozen_cache.py``).
+
 Parameters are redrawn with Flax's default initializers from ``seed``
 (``nn.common.flax_init_``); dropout masks come from a ``torch.Generator``
 seeded with ``seed + 1`` on the trainer's device (the JAX package's ``rbg``
@@ -111,6 +121,8 @@ class TrainerConfig:
     # the single-file checkpoint ('msgpack' in the JAX package; torch.save
     # here). The orbax backends are not ported.
     checkpoint_backend: str = "msgpack"
+    # parameter subtrees (JAX path prefixes) that get no update
+    frozen_param_prefixes: Tuple[Tuple[str, ...], ...] = ()
     # not ported yet: each raises NotImplementedError when set (UNPORTED_KNOBS)
     profile_dir: Optional[str] = None
     mixup_alpha: float = 0.0
@@ -118,7 +130,6 @@ class TrainerConfig:
     device_resident: bool = False
     steps_per_dispatch: int = 1
     handle_preemption: bool = False
-    frozen_param_prefixes: Tuple[Tuple[str, ...], ...] = ()
     param_partition_rules: Tuple[Any, ...] = ()
     device_preproc: Optional[Callable[..., tuple]] = None
 
@@ -132,7 +143,6 @@ UNPORTED_KNOBS: Dict[str, Any] = {
     "device_resident": False,
     "steps_per_dispatch": 1,
     "handle_preemption": False,
-    "frozen_param_prefixes": (),
     "param_partition_rules": (),
     "device_preproc": None,
     "checkpoint_backend": "msgpack",
@@ -253,15 +263,39 @@ class Trainer:
                 m.generator = self.dropout_generator
         # per-step LR function, built in fit() once the step count is known
         self._lr_step_fn: Optional[Callable[[int], float]] = None
+        # keyword arguments every forward receives (set_apply_kwargs)
+        self._apply_kwargs: Dict[str, Any] = {}
 
     # ------------------------------------------------------------ setup
+
+    def frozen_names(self) -> List[str]:
+        """The parameters under ``frozen_param_prefixes``, by ``state_dict``
+        name; a prefix that names no parameter raises."""
+        names = [n for n, _ in self.model.named_parameters()]
+        frozen = []
+        for path in self.config.frozen_param_prefixes:
+            prefix = ".".join(path) + "."
+            hit = [n for n in names if n.startswith(prefix)]
+            if not hit:
+                raise ValueError(f"frozen_param_prefixes entry {tuple(path)} names no parameter of the model")
+            frozen += hit
+        return sorted(set(frozen))
+
+    def trainable_parameters(self) -> List[nn.Parameter]:
+        """The parameters Adam updates (all but the frozen ones), in
+        registration order; the frozen ones stop asking for gradients."""
+        frozen = set(self.frozen_names())
+        for name, p in self.model.named_parameters():
+            if name in frozen:
+                p.requires_grad_(False)
+        return [p for n, p in self.model.named_parameters() if n not in frozen]
 
     def init_state(self) -> nn.Module:
         """Redraw the parameters with Flax's initializers from ``seed`` and
         start a fresh Adam; returns the model."""
         flax_init_(self.model, torch.Generator().manual_seed(self.config.seed))
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.config.learning_rate,
+            self.trainable_parameters(), lr=self.config.learning_rate,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=self.config.weight_decay,
         )
         self.step = 0
@@ -270,6 +304,15 @@ class Trainer:
     def ensure_initialized(self) -> None:
         if self.optimizer is None:
             self.init_state()
+
+    def set_apply_kwargs(self, **kwargs) -> None:
+        """Keyword arguments every forward receives from now on, in training
+        and evaluation (e.g. ``cached_features=True``). Set them before the
+        first step: the JAX trainer raises once its steps are compiled, and
+        so does this one once a step has run."""
+        if self.step:
+            raise RuntimeError("set_apply_kwargs after training steps ran: the change would apply midway")
+        self._apply_kwargs.update(kwargs)
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -296,7 +339,7 @@ class Trainer:
         (Σ loss·w, correct, Σ weights, Σ w); nothing is read back."""
         self.model.train()
         with model_precision(self.compute_dtype):
-            logits = self.model(*(self._prepare(x) for x in inputs)).float()
+            logits = self.model(*(self._prepare(x) for x in inputs), **self._apply_kwargs).float()
             w = self._example_weights(labels, weights)
             wsum = w.sum()
             loss = (F.cross_entropy(logits, labels, reduction="none") * w).sum() / wsum.clamp_min(1e-9)
@@ -315,7 +358,7 @@ class Trainer:
         device tensor (Σ loss·w, correct, Σ weights, Σ w)."""
         self.model.eval()
         with model_precision(self.compute_dtype):
-            logits = self.model(*(self._prepare(x) for x in inputs)).float()
+            logits = self.model(*(self._prepare(x) for x in inputs), **self._apply_kwargs).float()
         w = self._example_weights(labels, weights)
         ce = F.cross_entropy(logits, labels, reduction="none")
         correct = ((logits.argmax(-1) == labels).float() * weights).sum()

@@ -8,7 +8,9 @@ The inverse of the JAX package's ``utils/torch_import.py``: it takes
 - Conv ``kernel`` (kh, kw, I/groups, O) → ``weight`` (O, I/groups, kh, kw),
   which covers a depthwise kernel (kh, kw, 1, C) → (C, 1, kh, kw);
 - Conv1d ``kernel`` (k, I, O) → ``weight`` (O, I, k);
-- Dense ``kernel`` (I, O) → ``weight`` (O, I);
+- Dense ``kernel`` (I, O) → ``weight`` (O, I), which covers the 2-D
+  ``query``/``key``/``value`` kernels of ``SingleQueryAttention`` (plain
+  Dense layers, not the attention projections below);
 - the ``query``/``key``/``value`` projections of Flax's
   ``MultiHeadDotProductAttention`` (``DenseGeneral``), ``kernel``
   (D, heads, head_dim) and ``bias`` (heads, head_dim) → ``nn.Linear``'s

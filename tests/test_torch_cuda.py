@@ -6,7 +6,10 @@ masks, the native WAV decoder's build, the audio_video path (its
 featurization through the log-mel kernel, a full-width train step, and
 ``predict_clips`` against the CPU), and the cue paths (a bert-base forward
 on padded ids and an audio_cues train step against the CPU, int32 ids
-through the ``Predictor``).
+through the ``Predictor``), and the frozen encoders of the audio_cues_video
+models (frozen parameters bit-equal over card steps, ``frozen_bn_eval``
+through ``model.train()``) and that pipeline's featurization through the
+log-mel kernel.
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -426,3 +429,88 @@ def test_predictor_takes_int32_ids_on_the_card(cuda_device):
     got = Predictor(net, batch_size=4, device="cuda").predict_logits(ids)  # one full batch, one padded
     assert seen == [torch.int32] * 4
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _frozen_trainer(tmp_path, frozen_bn_eval, weight_decay=1e-3):
+    # acv_config's early_fusion_mobile: audio ResNet18 and video MobileNetV2 frozen
+    from multimodal_lipread_torch.models.audio_cues_video import FROZEN_PARAM_PREFIXES, get_triple_model
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = TrainerConfig(model_name="m", num_classes=4, batch_size=8, learning_rate=1e-3,
+                        weight_decay=weight_decay, seed=0, frozen_param_prefixes=FROZEN_PARAM_PREFIXES[
+                            "early_fusion_mobile"],
+                        metrics_dir=str(tmp_path / "m"), checkpoints_dir=str(tmp_path / "c"))
+    trainer = Trainer(get_triple_model("early_fusion_mobile", 4, frozen_bn_eval=frozen_bn_eval), cfg, device="cuda")
+    trainer.init_state()
+    return trainer
+
+
+def _triple_batch(trainer, seed=7):
+    from multimodal_lipread_torch.train.trainer import ArrayDataset
+
+    rng = np.random.default_rng(seed)
+    ds = ArrayDataset((rng.standard_normal((8, 80, 117)).astype(np.float32),
+                       (rng.standard_normal((8, 768)) * 0.05).astype(np.float32), _lips(8, seed=seed)),
+                      np.arange(8, dtype=np.int32) % 4)
+    (batch,) = list(trainer.batches(ds, True, np.random.default_rng(0)))
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen_bn_eval", [False, True])
+def test_frozen_parameters_stay_bit_equal_over_card_steps(cuda_device, tmp_path, frozen_bn_eval):
+    trainer = _frozen_trainer(tmp_path, frozen_bn_eval)
+    start = {k: t.clone() for k, t in trainer.model.state_dict().items()}
+    frozen = trainer.frozen_names()
+    batch = _triple_batch(trainer)
+    for _ in range(3):
+        loss_sum, _c, _n, wsum = trainer.train_step(*batch).tolist()
+        assert np.isfinite(loss_sum)
+    end = trainer.model.state_dict()
+    assert frozen and all(torch.equal(end[k], start[k]) for k in frozen)
+    assert not torch.equal(end["fc1.weight"], start["fc1.weight"])
+    stats = [k for k in end if k.startswith(("audio.resnet.", "video.cnn.")) and "running_" in k]
+    moved = [k for k in stats if not torch.equal(end[k], start[k])]
+    # frozen_bn_eval keeps the frozen BatchNorms on their running statistics through model.train()
+    assert (moved == []) if frozen_bn_eval else (len(moved) == len(stats))
+
+
+@pytest.mark.cuda
+def test_frozen_bn_eval_survives_model_train_on_the_card(cuda_device, tmp_path):
+    trainer = _frozen_trainer(tmp_path, frozen_bn_eval=True)
+    batch = _triple_batch(trainer, seed=8)
+    trainer.train_step(*batch)  # calls model.train()
+    model = trainer.model
+    assert model.training and model.fc1.training
+    assert not any(m.training for m in list(model.audio.resnet.modules()) + list(model.video.cnn.modules()))
+    with torch.no_grad():  # the frozen encoders give their eval-mode features in a training step
+        x = tuple(trainer._prepare(t) for t in batch[0])
+        with model_precision(torch.float32):
+            train_feats = model(*x, return_frozen_features=True)
+            model.eval()
+            eval_feats = model(*x, return_frozen_features=True)
+    for a, b in zip(train_feats, eval_feats):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_audio_cues_video_corpus_features_from_the_kernel(cuda_device, tmp_path):
+    from multimodal_lipread_torch.data.cues import load_cue_records, records_by_key
+    from multimodal_lipread_torch.data.glips import align_modalities, lip_regions_root, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.pipelines.audio_cues_video import load_triple_datasets
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+
+    root = make_synthetic_glips(str(tmp_path / "GLips_4"), clips_per_split=3, seed=9, with_lip_regions=True,
+                                with_cues=True)
+    before = logmel_cuda.launch_count
+    datasets, classes = load_triple_datasets(root, root, lip_regions_root(root), device="cuda")
+    assert logmel_cuda.launch_count == before + 3  # one launch per split of 12 clips
+    cue_map = records_by_key(load_cue_records(root, "emotion"))
+    pairs = [(a, v) for a, v in align_modalities(scan_glips(root), scan_lip_regions(lip_regions_root(root)),
+                                                 split="val") if a.key in cue_map]
+    wave = torch.from_numpy(decode_waveforms([a.path for a, _v in pairs])).to(cuda_device)
+    want = log_mel_reference(wave, True)[:, :80, :117].cpu().numpy()
+    mels, cues, lips = datasets["val"].inputs
+    assert mels.shape == (12, 80, 117) and cues.shape == (12, 768) and lips.dtype == np.uint8 and len(classes) == 4
+    np.testing.assert_allclose(mels, want, rtol=0, atol=TOL)

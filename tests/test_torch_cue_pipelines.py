@@ -422,6 +422,7 @@ def test_serving_refuses_the_tfidf_model(glips_root, tmp_path):
     cfg = Config.from_dict({"dataset": {"root_dir": glips_root}, "model": {"name": "linear"}})
     with pytest.raises(ValueError, match="TF-IDF"):
         serving._featurize_modalities("cues", cfg, [[t] for t in texts], device="cpu")
-    assert serving.PIPELINES == ("audio", "video", "audio_video", "cues", "audio_cues")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serving.build_model("cues_video", cfg)
+    assert serving.PIPELINES == ("audio", "video", "audio_video", "cues", "audio_cues", "cues_video",
+                                 "audio_cues_video")
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        serving.build_model("nope", cfg)

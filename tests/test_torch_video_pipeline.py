@@ -323,14 +323,3 @@ def test_video_featurization_matches_jax(glips_root, tmp_path):
     (want,) = jserving._featurize_modalities("video", JConfig.from_dict(cfg), groups)
     assert got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("pipeline", ["cues_video", "audio_cues_video"])
-def test_other_pipelines_point_at_roadmap(pipeline):
-    cfg = Config.from_dict({})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.build_model(pipeline, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.predict_clips(cfg, "x.pt", pipeline, [["a", "b"]], device="cpu")
-    with pytest.raises(ValueError):
-        serving.build_model("nope", cfg)
