@@ -182,15 +182,56 @@ a non-zero exit:
    audio_cues_video models (B=8 on mel + cue + lips), their frozen
    parameters frozen.
 
+20. crop-kernel (after 3): the lip-crop kernel (``csrc/crop_resize.cu``)
+   against ``crop_resize_pad_reference`` on the card, on frames of
+   256 x 256 x 3 and boxes from ``--seed`` (failed detections, a negative
+   width, edge-touching, whole-frame, square and exact 44 x 44 boxes among
+   them) at 16 x 29 and 32 x 29 frames, uint8 and normalized: the largest
+   difference in uint8 LSB (at most 1; bit-equal expected) and the count of
+   differing values; its launch configuration, registers, shared memory
+   and spills; times of the kernel, the plain version and ``F.grid_sample``
+   over the same source coordinates (a partial yardstick) by CUDA events,
+   and the bound (output bytes plus the distinct 32-byte sectors of source
+   rows the gather needs, at the memory rate);
+21. stream-train (after 5): ``pipelines.audio.main`` with
+   ``dataset.streaming`` on [train]'s corpus, 1 epoch: the log-mel kernel
+   launches at least once per train step (``WaveToLogMel`` in the
+   forward), and one step on the first unshuffled batch gives the
+   features-first model's loss at the same weights, to 1e-4;
+22. crop-train (after 7): ``visual_config.yaml``'s ``resnet_trans`` at
+   its widths, batch 16, 2 epochs on 64 in-memory clips of 29 full
+   256 x 256 frames and boxes from ``--seed``, streamed, with the crop
+   kernel as ``device_preproc``: finite losses, the kernel launched every
+   step, the first 3 losses equal to the same steps on an ``ArrayDataset``
+   of the plain version's crops in the same order (1e-5, under
+   ``cudnn.deterministic``); a per-step breakdown (host batch, H2D of the
+   full frames, crop kernel, step, idle); 4 requests of 16 full-frame
+   clips through ``Predictor(device_preproc=device_crop)`` against the
+   plain crops, to 1e-3;
+23. mp4 (after 22): ``pipelines.video.main`` on a synthetic ``.mp4`` tree
+   (OpenCV ``mp4v``), 1 epoch with ``dataset.device_crop`` and 1 with
+   ``dataset.host_crop_streaming``, and the host's decode + detect time
+   per clip;
+24. graphs (after 19, before [zoo]): device-resident training of
+   [av-train]'s, [acv-train]'s, [cues-train]'s (bert-base) and
+   [ac-train]'s models on 10 full batches of their train splits (cut, or
+   repeated where smaller), eager against CUDA graphs of 4 steps (``steps_per_dispatch``):
+   per-step losses over 2 epochs with one forced ReduceLROnPlateau halving,
+   with dropout off and on, bit-equal expected and held to 1e-6 under
+   ``cudnn.deterministic``; then, before and after, device activities and
+   host launch calls per step, step time, clips/s and the idle share.
+
 Every phase prints its wall time. The video and cue phases, [cv-*] and
 [zoo] launch no hand-written kernel. The line
 before the last is ``{"kernels": [...]}``, one entry per kernel, with the
-paths that launch it; the last line is ``{"ok": true, "device": {...}}``.
+paths that launch it (the crop kernel's ``max_abs_err`` in uint8 LSB); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -325,6 +366,22 @@ ZOO_CV = ("early_fusion_mobile", "middle_fusion_mobile", "late_fusion_mobile", "
 ZOO_ACV = ("early_fusion_mobile", "middle_fusion_mobile", "early_fusion_resnet", "middle_fusion_resnet",
            "late_fusion_resnet", "test_model")
 ZOO_AUDIO_BATCH, ZOO_VIDEO_BATCH, ZOO_CPU_ROWS, ZOO_ITERS = 32, 16, 4, 5
+# [crop-kernel]: the device-crop train step's frames (B = 16 and 32 clips of
+# 29 GLips frames); [crop-train]: resnet_trans on 64 in-memory full-frame
+# clips (4 steps of 16 an epoch), its first steps held to plain-crop steps
+# (the same crops bit for bit; cuDNN's float32 sums in either run's order)
+CROP_FRAME, CROP_CLIPS = (256, 256), (16, 32)
+CROP_TRAIN_CLIPS, CROP_EPOCHS, CROP_PARITY_STEPS, CROP_PARITY_RTOL = 64, 2, 3, 1e-5
+CROP_BREAKDOWN_STEPS, CROP_REQUEST, CROP_REQUESTS = 3, 16, 4
+# [stream-train]: the streaming model's first-step loss against the
+# features-first model's (the log-mel kernel runs on the same clips in both)
+STREAM_RTOL = 1e-4
+# [graphs]: device-resident epochs of 10 full batches (2 groups of K=4 and a
+# tail of 2), eager (K=1) against CUDA graphs; graphed per-step losses held
+# to eager ones
+GRAPH_K, GRAPH_BATCHES, GRAPH_RTOL = 4, 10, 1e-6
+# [mp4]: the video pipeline on rendered .mp4 clips (4 words x 8 per split)
+MP4_CLIPS_PER_SPLIT, MP4_TIMED_CLIPS = 8, 8
 
 
 def log(phase: str, msg: str) -> None:
@@ -661,14 +718,9 @@ def flop_counter():
     return fc.FlopCounterMode(display=False, custom_mapping={torch.ops.aten.convolution_backward: conv_backward})
 
 
-def device_busy_s(fn) -> tuple:
-    """(busy s, wall s, {name: device s}) of the card while ``fn`` runs:
-    the union of the kernels, copies and memsets that ``torch.profiler``
-    records on the device (not the device-side spans of the profiler's
-    annotations such as ``Optimizer.step``, which also cover the gaps
-    between their kernels), the profiled wall time (which the profiler's
-    own host work lengthens), and the device time of each kernel or copy
-    by name."""
+def profiled(fn) -> tuple:
+    """(events, wall s) of ``torch.profiler`` (CPU and CUDA) around ``fn``,
+    the card synchronized at both ends."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -677,21 +729,42 @@ def device_busy_s(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    return prof.events(), wall
+
+
+def device_activities(events) -> list:
+    """The kernels, copies and memsets that the profiler recorded on the
+    device (not the device-side spans of its annotations such as
+    ``Optimizer.step``, which also cover the gaps between their kernels)."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_seconds(activities: list):
+    """The union of the activities' spans, in seconds (None for none)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in activities)
     if not spans:
-        return None, wall, by_name
+        return None
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
             busy, lo, hi = busy + hi - lo, a, b
         else:
             hi = max(hi, b)
-    return (busy + hi - lo) * 1e-6, wall, by_name
+    return (busy + hi - lo) * 1e-6
+
+
+def device_busy_s(fn) -> tuple:
+    """(busy s, wall s, {name: device s}) of the card while ``fn`` runs:
+    the union of its device activities, the profiled wall time (which the
+    profiler's own host work lengthens), and the device time of each kernel
+    or copy by name."""
+    events, wall = profiled(fn)
+    activities = device_activities(events)
+    by_name: dict = {}
+    for e in activities:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-6
+    return busy_seconds(activities), wall, by_name
 
 
 def idle_line(busy_s, prof_s, epoch_s) -> str:
@@ -2213,6 +2286,539 @@ def phase_zoo(seed: int, device_info: dict, av: dict, video_best: str, tmp: str,
                          f"tolerance or a tenth of how far the logits move with the input, for {bad}")
 
 
+def crop_boxes(rng: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
+    """``n`` margin-expanded int32 lip boxes in (h, w) frames from ``rng``:
+    random mouth-sized boxes, and among them the cases the kernel must get
+    right: a failed detection (0, 0, 0, 0), a negative width, boxes touching
+    the frame's edges, the whole frame, a square and an exact 44 x 44."""
+    from multimodal_lipread_torch.ops.crop_resize import expand_boxes
+
+    x0, y0 = rng.integers(0, w - 40, n), rng.integers(0, h - 40, n)
+    raw = np.stack([x0, y0, np.minimum(x0 + rng.integers(12, 110, n), w),
+                    np.minimum(y0 + rng.integers(8, 70, n), h)], -1).astype(np.int32)
+    boxes = expand_boxes(torch.from_numpy(raw), h, w).numpy()
+    special = [(0, 0, 0, 0), (30, 12, 20, 40), (w - 60, h - 30, w, h), (0, 0, w, h), (0, h // 2, w, h // 2 + 9),
+               (w // 2 - 30, h // 2 - 30, w // 2 + 30, h // 2 + 30), (7, 3, 51, 47)]
+    for i, box in enumerate(special):
+        boxes[(i * 37) % n] = box
+    return boxes
+
+
+def crop_bound(frames_shape: tuple, boxes: torch.Tensor, normalize: bool) -> tuple:
+    """(bound ms, 'bytes') of the crop on these frames and boxes: the output
+    written once, the boxes read once and, per frame with a valid box, every
+    distinct 32-byte sector of the source rows that its bilinear gather
+    needs (the rows times the sectors holding the columns it reads; a GLips
+    row of 256 x 3 bytes starts on a sector boundary), at the card's memory
+    rate. Its operations (some 30 fp32 flops a sampled byte) take a
+    hundredth of that at the fp32 peak."""
+    from multimodal_lipread_torch.ops.crop_resize import source_coords
+
+    n, h, w, c = frames_shape
+    y0, y1, _wy, x0, x1, _wx, in_region = source_coords(boxes, h, w)
+    valid = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+    in_rows, in_cols = in_region.any(2).int(), in_region.any(1).int()  # (n, 44)
+    rows = torch.zeros((n, h), dtype=torch.int32, device=boxes.device)
+    for y in (y0[..., 0], y1[..., 0]):
+        rows.scatter_add_(1, y, in_rows)
+    sectors = torch.zeros((n, -(-w * c // 32)), dtype=torch.int32, device=boxes.device)
+    for x in (x0[:, 0, :], x1[:, 0, :]):
+        for byte in (0, c - 1):
+            sectors.scatter_add_(1, (x * c + byte) // 32, in_cols)
+    touched = ((rows > 0).sum(1) * (sectors > 0).sum(1) * valid).sum().item() * 32
+    out_bytes = n * 44 * 44 * c * (4 if normalize else 1)
+    nbytes = touched + out_bytes + boxes.numel() * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def phase_crop_kernel(seed: int, device_info: dict) -> dict:
+    """The crop kernel against its plain version on the card, at the frame
+    counts of the device-crop train step (B = 16 and 32 clips of 29 frames
+    of 256 x 256 x 3), in both modes; launch configuration, times of the
+    kernel, the plain version and ``F.grid_sample`` over the same source
+    coordinates (a partial yardstick), and the bound."""
+    import torch.nn.functional as F
+
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.ops.crop_resize import (
+        crop_resize_pad_normalize_reference,
+        crop_resize_pad_reference,
+        source_coords,
+    )
+
+    smi = device_info["smi"]
+    rng = np.random.default_rng(seed)
+    rows, max_lsb, failures = {}, 0.0, []
+    for normalize in (False, True):
+        cfg = crop_resize_cuda.launch_config(normalize=normalize)
+        log("crop-kernel", f"crop normalize={normalize} launch: one block of {cfg['threads']} threads per frame, "
+                           f"dynamic smem {cfg['dynamic_smem_bytes']} B + static {cfg['static_smem_bytes']} B, "
+                           f"{cfg['registers']} registers, {cfg['local_bytes']} B local (spills), "
+                           f"{cfg['blocks_per_sm']} blocks/SM")
+    for clips in CROP_CLIPS:
+        n = clips * 29
+        frames = torch.from_numpy(rng.integers(0, 256, (n, *CROP_FRAME, 3), dtype=np.uint8)).to(DEVICE)
+        boxes = torch.from_numpy(crop_boxes(rng, n, *CROP_FRAME)).to(DEVICE)
+        for normalize in (False, True):
+            kernel = crop_resize_cuda.crop_resize_pad_normalize if normalize else crop_resize_cuda.crop_resize_pad
+            plain = crop_resize_pad_normalize_reference if normalize else crop_resize_pad_reference
+            got, want = kernel(frames, boxes), plain(frames, boxes)
+            torch.cuda.synchronize()
+            diff = (got.double() - want.double()).abs() * (255.0 if normalize else 1.0)
+            lsb, differing = float(diff.max()), int((diff > 0).sum())
+            max_lsb = max(max_lsb, lsb)
+            blank = bool((got[:1] == 0).all())  # frame 0 holds the failed detection
+            ok = lsb <= 1.0 + 1e-6 and blank and got.shape == (n, 44, 44, 3)
+            log("crop-kernel", f"crop B={clips} x 29 frames normalize={normalize}: max abs diff {lsb:.3g} LSB, "
+                               f"{differing} of {got.numel()} values differ, degenerate box blank: {blank} "
+                               f"(tolerance 1 LSB) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append((clips, normalize, lsb))
+        ms = cuda_ms(lambda: crop_resize_cuda.crop_resize_pad(frames, boxes))
+        ms_norm = cuda_ms(lambda: crop_resize_cuda.crop_resize_pad_normalize(frames, boxes))
+        plain_ms = cuda_ms(lambda: crop_resize_pad_reference(frames, boxes), warmup=2, iters=10)
+        # the yardstick: one grid_sample over the same source coordinates, on
+        # a float NCHW copy of the frames made outside the timing
+        y0, _y1, wy, x0, _x1, wx, _in = source_coords(boxes, *CROP_FRAME)
+        sy, sx = (y0.float() + wy).expand(n, 44, 44), (x0.float() + wx).expand(n, 44, 44)
+        grid = torch.stack([sx / (CROP_FRAME[1] - 1) * 2 - 1, sy / (CROP_FRAME[0] - 1) * 2 - 1], -1)
+        nchw = frames.permute(0, 3, 1, 2).float().contiguous()
+        library_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", align_corners=True))
+        del nchw
+        bound, bound_by, nbytes = crop_bound(tuple(frames.shape), boxes, False)
+        bound_n, _, _ = crop_bound(tuple(frames.shape), boxes, True)
+        rows[clips] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": library_ms}
+        log("crop-kernel", f"crop B={clips} x 29 frames of {CROP_FRAME[0]} x {CROP_FRAME[1]}: kernel {ms:.4f} ms "
+                           f"({100 * bound / ms:.1f} % of bound; normalize=True {ms_norm:.4f} ms, bound "
+                           f"{bound_n:.4f}) | plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}: "
+                           f"{nbytes / 1e6:.2f} MB of sectors, output and boxes) | F.grid_sample on float "
+                           f"NCHW frames {library_ms:.4f} ms (partial yardstick: no letterbox, pad or rounding) "
+                           f"| {smi}")
+        del frames
+    if failures:
+        raise SystemExit(f"crop kernel disagrees with its plain version: {failures}")
+    return {"rows": rows, "max_abs_err": max_lsb}
+
+
+class MemoryClips:
+    """A full-frame clip source held in memory, made from a seed: per clip
+    29 frames of ``CROP_FRAME`` uint8 with a grey background, a lip patch of
+    the clip's class brightness and stripes inside its box, and the
+    margin-expanded box (``FullFrameClipSource``'s records, without a
+    video decode)."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        h, w = CROP_FRAME
+        self.labels = rng.integers(0, len(WORDS), n).astype(np.int32)
+        self.boxes = crop_boxes(rng, n * 29, h, w).reshape(n, 29, 4)  # failed detections among them
+        self.frames = rng.integers(100, 140, (n, 29, h, w, 3), dtype=np.uint8)
+        stripes = ((np.arange(h)[:, None] // 3) % 2 * 40).astype(np.uint8)
+        for i in range(n):
+            for t in range(29):
+                x0, y0, x1, y1 = self.boxes[i, t]
+                if x1 <= x0 or y1 <= y0:
+                    continue
+                patch = 40 + 45 * self.labels[i] + stripes[y0:y1, :, None] * (self.labels[i] % 2)
+                self.frames[i, t, y0:y1, x0:x1] = np.broadcast_to(patch, (y1 - y0, x1 - x0, 3))
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def __getitem__(self, i: int) -> dict:
+        return {"frames": self.frames[i], "boxes": self.boxes[i], "label": self.labels[i]}
+
+
+@contextlib.contextmanager
+def recorded_losses():
+    """Inside the block, every metrics row the trainer pushes (a step's
+    (Σ loss·w, correct, Σ weights, Σ w), or a group's K rows) is kept as
+    per-step losses, in order, in the list it yields."""
+    from multimodal_lipread_torch.train import trainer as trainer_module
+
+    losses: list = []
+    push = trainer_module._Metrics.push
+
+    def recorded(self, stats):
+        rows = stats.reshape(-1, 4).double()
+        losses.append(rows[:, 0] / rows[:, 3])
+        push(self, stats)
+
+    trainer_module._Metrics.push = recorded
+    try:
+        yield losses
+    finally:
+        trainer_module._Metrics.push = push
+
+
+def flat_losses(recorded: list) -> np.ndarray:
+    return torch.cat(recorded).cpu().numpy() if recorded else np.zeros(0)
+
+
+def phase_crop_train(seed: int, device_info: dict, tmp: str) -> dict:
+    """visual_config's resnet_trans at its widths, batch 16, trained 2 epochs
+    on full frames streamed from memory with the crop kernel as
+    ``device_preproc``; its first steps against the same steps on an
+    ``ArrayDataset`` of the plain version's crops in the same order; a
+    per-step breakdown; 4 requests of 16 full-frame clips through
+    ``Predictor(device_preproc=device_crop)`` against the plain crops."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.grain_loader import StreamingDataset
+    from multimodal_lipread_torch.models.video import get_video_model
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.ops.crop_resize import crop_resize_pad_reference
+    from multimodal_lipread_torch.train.checkpoint import save_checkpoint
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    t0 = time.perf_counter()
+    source = MemoryClips(CROP_TRAIN_CLIPS, seed)
+    stream = StreamingDataset(source, ("frames", "boxes"), seed=seed)
+    log("crop-train", f"in-memory full-frame source from --seed: {len(source)} clips of 29 x {CROP_FRAME[0]} x "
+                      f"{CROP_FRAME[1]} x 3 uint8 with boxes ({source.frames.nbytes / 2**20:.1f} MiB), made in "
+                      f"{time.perf_counter() - t0:.2f} s")
+
+    def trainer(name, **extra):
+        t = Trainer(get_video_model("resnet_trans", len(WORDS)), TrainerConfig(
+            model_name=name, num_classes=len(WORDS), batch_size=VIDEO_BATCH, epochs=CROP_EPOCHS,
+            learning_rate=VIDEO_LR, weight_decay=VIDEO_WD, seed=seed, scheduler_mode="max",
+            metrics_dir=os.path.join(tmp, "crop", name, "m"), checkpoints_dir=os.path.join(tmp, "crop", name, "c"),
+            **extra), device=DEVICE)
+        t.init_state()
+        return t
+
+    torch.backends.cudnn.deterministic = True  # both runs' steps repeat bit for bit (see [graphs])
+    cropping = trainer("resnet_trans_crop", device_preproc=crop_resize_cuda.device_crop)
+    crop_resize_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    with recorded_losses() as recorded:
+        epochs = [cropping.train_epoch(stream, np.random.default_rng(seed + e), epoch=e)
+                  for e in range(1, CROP_EPOCHS + 1)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = crop_resize_cuda.launch_count
+    losses = flat_losses(recorded)
+    log("crop-train", f"resnet_trans, batch {VIDEO_BATCH}, {CROP_EPOCHS} epochs on streamed full frames, the crop "
+                      f"kernel as device_preproc: {wall:.2f} s, {len(losses)} steps, epoch train losses "
+                      f"{[round(m.loss, 4) for m in epochs]}, crop kernel launches {launches}")
+    if launches < len(losses) or not np.isfinite(losses).all():
+        raise SystemExit(f"[crop-train] {launches} crop launches for {len(losses)} steps, losses {losses}")
+    # the same steps on the plain version's crops, in the same batch order
+    lips = np.concatenate([crop_resize_pad_reference(torch.from_numpy(source.frames[i : i + 8]).to(DEVICE),
+                                                     torch.from_numpy(source.boxes[i : i + 8]).to(DEVICE)).cpu().numpy()
+                           for i in range(0, len(source), 8)])
+    plain = trainer("resnet_trans_plain")
+    with recorded_losses() as recorded:
+        plain.train_epoch(ArrayDataset((lips,), source.labels), np.random.default_rng(seed + 1))
+    torch.backends.cudnn.deterministic = False
+    want = flat_losses(recorded)[:CROP_PARITY_STEPS]
+    rel = np.abs(losses[:CROP_PARITY_STEPS] / want - 1.0)
+    ok = bool(np.all(rel <= CROP_PARITY_RTOL))
+    log("crop-train", f"first {CROP_PARITY_STEPS} steps, device crop {losses[:CROP_PARITY_STEPS].tolist()} vs plain "
+                      f"crops {want.tolist()}: relative {rel.tolist()} (tolerance {CROP_PARITY_RTOL:g}) "
+                      f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[crop-train] the device-crop steps differ from the plain-crop steps")
+
+    # one step's breakdown: host batch, pin + H2D of the full frames, the
+    # crop kernel, the train step (the crop included), card idle
+    names = ("host batch", "H2D frames", "crop kernel", "step incl. crop")
+    totals = np.zeros(len(names) + 1)
+    batches = cropping.stream_batches(stream, 1, True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(CROP_BREAKDOWN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs, labels, weights = next(batches)
+        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in (*inputs, labels, weights)]
+        t1 = time.perf_counter()
+        ev[0].record()
+        frames, boxes, y, w = (t.to(DEVICE, non_blocking=True) for t in host)
+        ev[1].record()
+        crop_resize_cuda.crop_resize_pad(frames, boxes)
+        ev[2].record()
+        cropping.train_step((frames, boxes), y, w)
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        totals += [(t1 - t0) * 1e3, *device, 100.0 * (1.0 - (device[0] + device[2]) / wall_ms)]
+    stages = dict(zip(names, totals[:-1] / CROP_BREAKDOWN_STEPS))
+    log("crop-train", f"per step at B={VIDEO_BATCH} (mean of {CROP_BREAKDOWN_STEPS}): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stages.items()) + f", card idle {totals[-1] / CROP_BREAKDOWN_STEPS:.1f} % | "
+        f"{inputs[0].nbytes / 1e6:.1f} MB of frames a batch | {smi}")
+
+    # serving full frames through the predictor's device crop
+    ckpt = os.path.join(tmp, "crop", "resnet_trans_crop.pt")
+    save_checkpoint(ckpt, cropping.checkpoint_tree(CROP_EPOCHS, 0.0, 0.0))
+    crop_resize_cuda.launch_count = 0
+    predictor = serving.Predictor.from_checkpoint(get_video_model("resnet_trans", len(WORDS)), ckpt, CROP_REQUEST,
+                                                  device=DEVICE, device_preproc=crop_resize_cuda.device_crop)
+    reference = serving.Predictor.from_checkpoint(get_video_model("resnet_trans", len(WORDS)), ckpt, CROP_REQUEST,
+                                                  device=DEVICE)
+    served, refs, total_s = [], [], 0.0
+    for r in range(CROP_REQUESTS):
+        sel = slice((r * CROP_REQUEST) % len(source), (r * CROP_REQUEST) % len(source) + CROP_REQUEST)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served.append(predictor.predict_logits(source.frames[sel], source.boxes[sel]))
+        total_s += time.perf_counter() - t0
+        refs.append(reference.predict_logits(lips[sel]))
+    serve_launches = crop_resize_cuda.launch_count
+    log("crop-train", f"Predictor(device_preproc=device_crop): {CROP_REQUESTS} requests of {CROP_REQUEST} full-frame "
+                      f"clips in {total_s * 1e3:.2f} ms ({total_s / CROP_REQUESTS * 1e3:.3f} ms a request, "
+                      f"{CROP_REQUESTS * CROP_REQUEST / total_s:.1f} clips/s; frames H2D, crop kernel, forward, D2H), "
+                      f"crop kernel launches {serve_launches} | {smi}")
+    if serve_launches < CROP_REQUESTS:
+        raise SystemExit("[crop-train] serving did not launch the crop kernel")
+    check_logits("crop-train", "device-crop Predictor", np.concatenate(served), np.concatenate(refs),
+                 "plain-version crops on the card")
+    return {"launches": launches + serve_launches}
+
+
+def phase_stream_train(seed: int, device_info: dict) -> int:
+    """``pipelines.audio.main`` with ``dataset.streaming: true`` on [train]'s
+    WAV corpus, 1 epoch: the log-mel kernel runs in every step's forward;
+    one step on the first unshuffled streaming batch against the
+    features-first model's at the same weights. Returns the log-mel
+    kernel's launches."""
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.models.audio import get_audio_model
+    from multimodal_lipread_torch.models.frontend import WaveToLogMel
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_audio_datasets
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_stream_")
+    try:
+        root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=TRAIN_CLIPS_PER_SPLIT,
+                                    seed=seed)
+        cfg = Config.from_dict({
+            "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117, "streaming": True},
+            "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
+            "training": {"batch_size": TRAIN_BATCH, "epochs": 1, "learning_rate": TRAIN_LR,
+                         "weight_decay": TRAIN_WD, "seed": seed},
+            "output": {"base_dir": os.path.join(tmp, "run"), "plots": False},
+        })
+        logmel_cuda.launch_count = 0
+        t0 = time.perf_counter()
+        result = audio_pipeline.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = logmel_cuda.launch_count
+        steps = -(-TRAIN_CLIPS_PER_SPLIT * len(WORDS) // TRAIN_BATCH)
+        h = result["history"][0]
+        log("stream-train", f"pipelines.audio.main with dataset.streaming: vgg_lstm VGG{VGG_VERSION}-BN, batch "
+                            f"{TRAIN_BATCH}, 1 epoch in {wall:.2f} s (WAV decode per batch on the host, the log-mel "
+                            f"kernel in every forward): train {h['train_loss']:.4f} val {h['val_loss']:.4f} test "
+                            f"{h['test_loss']:.4f}, {h['clips_per_sec']:.1f} clips/s (train + val + test); log-mel "
+                            f"kernel launches {launches} for {steps} train steps | {smi}")
+        if launches < steps or not np.isfinite([h["train_loss"], h["val_loss"], h["test_loss"]]).all():
+            raise SystemExit(f"[stream-train] {launches} log-mel launches for {steps} train steps, or a "
+                             "non-finite loss")
+        index = scan_glips(root)
+        train = index.by_split("train")[:TRAIN_BATCH]
+        labels = np.asarray([index.class_to_idx[e.word] for e in train])
+        waves = decode_waveforms([e.path for e in train])
+        mels = load_audio_datasets(root, device=DEVICE)[0]["train"].inputs[0][:TRAIN_BATCH]
+        losses = []
+        for model, x in ((WaveToLogMel(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION)), waves),
+                         (get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION), mels)):
+            t = Trainer(model, TrainerConfig(model_name="s", num_classes=len(WORDS), batch_size=TRAIN_BATCH, seed=seed,
+                                             learning_rate=TRAIN_LR, metrics_dir=os.path.join(tmp, "m"),
+                                             checkpoints_dir=os.path.join(tmp, "c")), device=DEVICE)
+            losses.append(t.train_single_batch(ArrayDataset((x,), labels)))
+        rel = abs(losses[0] / losses[1] - 1.0)
+        ok = rel <= STREAM_RTOL
+        log("stream-train", f"one step on the first unshuffled batch: waveforms through WaveToLogMel {losses[0]:.7f} "
+                            f"vs features first {losses[1]:.7f}, relative {rel:.3e} (tolerance {STREAM_RTOL:g}) "
+                            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("[stream-train] the streaming model's loss differs from the features-first model's")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mp4(seed: int, device_info: dict, tmp: str) -> int:
+    """``pipelines.video.main`` on a synthetic ``.mp4`` tree (OpenCV's
+    ``mp4v``, 96 x 96 frames, the centre backend's lip box), 1 epoch with
+    ``dataset.device_crop`` and 1 with ``dataset.host_crop_streaming``; the
+    host's decode + detect (+ crop) time per clip. Returns the crop
+    kernel's launches."""
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.data.grain_loader import FullFrameClipSource, HostCropClipSource
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.pipelines import video as video_pipeline
+
+    smi = device_info["smi"]
+    root = make_synthetic_glips(os.path.join(tmp, "mp4", "GLips_4"), words=WORDS, clips_per_split=MP4_CLIPS_PER_SPLIT,
+                                seed=seed, with_audio=False, with_video=True)
+    index = scan_glips(root, exts=(".mp4",))
+    entries = index.by_split("train")[:MP4_TIMED_CLIPS]
+    for name, source in (("decode + detect (device_crop's host half)",
+                          FullFrameClipSource(entries, index.class_to_idx, backend="center")),
+                         ("decode + detect + crop (host_crop_streaming)",
+                          HostCropClipSource(entries, index.class_to_idx, backend="center"))):
+        t0 = time.perf_counter()
+        for i in range(len(source)):
+            source[i]
+        log("mp4", f"host {name}: {(time.perf_counter() - t0) / len(source) * 1e3:.2f} ms a clip of 29 frames "
+                   f"(96 x 96, mean of {len(source)}) | host CPU ({os.cpu_count()} cores)")
+    launches = 0
+    for knob in ("device_crop", "host_crop_streaming"):
+        cfg = video_config(root, os.path.join(tmp, "mp4", knob), seed, epochs=1)
+        cfg.set(f"dataset.{knob}", True)
+        cfg.set("dataset.landmark_backend", "center")
+        crop_resize_cuda.launch_count = 0
+        t0 = time.perf_counter()
+        result = video_pipeline.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = result["history"][0]
+        log("mp4", f"pipelines.video.main with dataset.{knob}: resnet_trans, batch {VIDEO_BATCH}, 1 epoch on "
+                   f"{len(index.entries)} .mp4 clips in {wall:.2f} s: train {h['train_loss']:.4f} val "
+                   f"{h['val_loss']:.4f} test {h['test_loss']:.4f}, {h['clips_per_sec']:.1f} clips/s (train + val "
+                   f"+ test); crop kernel launches {crop_resize_cuda.launch_count} | {smi}")
+        if not np.isfinite([h["train_loss"], h["val_loss"], h["test_loss"]]).all():
+            raise SystemExit(f"[mp4] {knob}: a non-finite loss")
+        if (crop_resize_cuda.launch_count > 0) != (knob == "device_crop"):
+            raise SystemExit(f"[mp4] {knob}: the crop kernel launched {crop_resize_cuda.launch_count} times")
+        launches += crop_resize_cuda.launch_count
+    return launches
+
+
+def dispatch_measures(trainer, ds, seed: int) -> dict:
+    """One unprofiled epoch's time; over one profiled epoch the card's busy
+    time, its activities and the host's launch calls (kernel and graph
+    launches, async copies and memsets) per step."""
+    steps = -(-len(ds) // trainer.batch_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(ds, np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    events, prof_s = profiled(lambda: trainer.train_epoch(ds, np.random.default_rng(seed)))
+    activities = device_activities(events)
+    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaLaunchKernelExC",
+                                                   "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync"))
+    return {"epoch_s": epoch_s, "busy_s": busy_seconds(activities), "prof_s": prof_s,
+            "activities": len(activities) / steps, "host_launches": launches / steps, "steps": steps}
+
+
+def phase_graphs(seed: int, device_info: dict, tmp: str, datasets: dict) -> None:
+    """Device-resident training of the launch-bound models, eager (K=1)
+    against CUDA graphs of K=4 steps: per-step losses over 2 epochs with
+    one forced ReduceLROnPlateau halving between them, with dropout off and
+    on, under ``cudnn.deterministic`` (cuDNN's default float32 kernels sum
+    in a run-dependent order, so that two eager runs part from the second
+    step on: a diagnostic line shows by how much); then, before and after
+    in the same run and with the default kernels, device activities and
+    host launch calls per step, step time, clips/s an epoch and the card's
+    idle share."""
+    from multimodal_lipread_torch.tools.train_drift import PIPELINES, build
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    smi = device_info["smi"]
+    for pipeline, ds in datasets.items():
+        spec = PIPELINES[pipeline]
+        batch, lr = spec["batch"], spec["lrs"][0]
+        # GRAPH_BATCHES full batches: the split cut, or its clips repeated
+        n = GRAPH_BATCHES * batch
+        reps = -(-n // len(ds))
+        ds = ArrayDataset(tuple(np.concatenate([a] * reps)[:n] for a in ds.inputs), np.concatenate([ds.labels] * reps)[:n])
+
+        def make(k, dropout):
+            model = graph_model(pipeline, spec["model"]) if dropout else build(pipeline, spec["model"])
+            t = Trainer(model, TrainerConfig(
+                model_name=f"{pipeline}_k{k}", num_classes=len(WORDS), batch_size=batch, learning_rate=lr,
+                weight_decay=spec["weight_decay"], seed=seed, scheduler_patience=0, device_resident=True,
+                steps_per_dispatch=k, metrics_dir=os.path.join(tmp, "graphs", pipeline, str(k), "m"),
+                checkpoints_dir=os.path.join(tmp, "graphs", pipeline, str(k), "c")), device=DEVICE)
+            t.init_state()
+            return t
+
+        def run(trainer):
+            with recorded_losses() as recorded:
+                trainer.train_epoch(ds, np.random.default_rng(seed + 1))
+                first = len(recorded)
+                # force one halving: an improvement, then a worse epoch
+                trainer.scheduler.step(1.0)
+                trainer._set_lr(trainer.scheduler.step(2.0))
+                trainer.train_epoch(ds, np.random.default_rng(seed + 2))
+            losses = flat_losses(recorded)
+            return losses, sum(len(r) for r in recorded[:first])
+
+        if pipeline == next(iter(datasets)):  # how far two eager runs part with cuDNN's default kernels
+            (la, _), (lb, _) = run(make(1, False)), run(make(1, False))
+            log("graphs", f"{pipeline}: two eager runs with cuDNN's default (not deterministic) kernels, largest "
+                          f"relative difference per step {np.abs(lb / la - 1.0).max():.3e} (diagnostic)")
+        results = {}
+        torch.backends.cudnn.deterministic = True  # so that eager steps repeat bit for bit
+        for dropout in (False, True):
+            eager, graphed = make(1, dropout), make(GRAPH_K, dropout)
+            (le, split), (lg, _) = run(eager), run(graphed)
+            rel = np.abs(lg / le - 1.0)
+            equal = bool(le.shape == lg.shape and np.all(rel <= GRAPH_RTOL))
+            log("graphs", f"{pipeline} {spec['model']} B={batch}, dropout {'on' if dropout else 'off'}: {len(le)} "
+                          f"steps in 2 epochs (LR halved after step {split}, to {eager.scheduler.lr:g}), K={GRAPH_K} "
+                          f"graphs vs eager per-step losses: largest relative difference {rel.max():.3e}, "
+                          f"bit-equal {bool(np.array_equal(le, lg))} (tolerance {GRAPH_RTOL:g}) "
+                          f"{'ok' if equal else 'FAIL' if not dropout else 'differs'}")
+            if not equal and not dropout:
+                raise SystemExit(f"[graphs] {pipeline}: graphed steps differ from eager ones with dropout off")
+            if not equal:  # with dropout: no two replays may draw the same masks
+                graphed.dropout_generator.manual_seed(seed)
+                state = graphed.dropout_generator.get_state()
+                pairs = []
+                for _ in range(2):
+                    graphed.dropout_generator.set_state(state)
+                    idxs, ws = next(graphed._index_groups(len(ds), False, np.random.default_rng(0)))[1]
+                    pairs.append(graphed._run_group("train", ds, None, idxs, ws).clone())
+                same = torch.equal(pairs[0], pairs[1])
+                log("graphs", f"{pipeline}: one group replayed twice from one saved generator state: losses "
+                              f"{'equal' if same else 'differ'} (the replays "
+                              f"{'repeat' if same else 'do not repeat'} their masks)")
+                if same:
+                    raise SystemExit(f"[graphs] {pipeline}: replays repeat their dropout masks")
+            results[dropout] = (eager, graphed)
+        torch.backends.cudnn.deterministic = False  # the measures run with the default kernels
+        for name, trainer in (("eager K=1", results[False][0]), (f"graphs K={GRAPH_K}", results[False][1])):
+            m = dispatch_measures(trainer, ds, seed)
+            log("graphs", f"{pipeline} {name}: {m['activities']:.1f} device activities and {m['host_launches']:.1f} "
+                          f"host launch calls per step; epoch of {len(ds)} clips, {m['steps']} steps: "
+                          f"{m['epoch_s'] * 1e3:.2f} ms, {m['epoch_s'] / m['steps'] * 1e3:.3f} ms a step, "
+                          f"{len(ds) / m['epoch_s']:.1f} clips/s; card idle "
+                          + idle_line(m["busy_s"], m["prof_s"], m["epoch_s"]) + f" | {smi}")
+        del results
+        torch.cuda.empty_cache()
+
+
+def graph_model(pipeline: str, name: str) -> torch.nn.Module:
+    """The pipeline's model at full width with its own dropout rates."""
+    if pipeline == "audio_video":
+        from multimodal_lipread_torch.models.audio_video import get_av_model
+
+        return get_av_model(name, len(WORDS))
+    if pipeline == "cues":
+        from multimodal_lipread_torch.models.cues import get_cue_model
+
+        return get_cue_model(name, len(WORDS), bert_size="base")
+    if pipeline == "audio_cues":
+        from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
+
+        return get_audio_cues_model(name, len(WORDS))
+    from multimodal_lipread_torch.models.audio_cues_video import get_triple_model
+
+    return get_triple_model(name, len(WORDS))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2225,13 +2831,18 @@ def main(argv=None) -> int:
     timed("build", phase_build)
     seed = args.seed
     kernel = timed("kernel", phase_kernel, seed)
+    crop = timed("crop-kernel", phase_crop_kernel, seed, device_info)
     launches = timed("serve", phase_serve, seed, device_info)
     train = timed("train", phase_train, seed, device_info)
     launches += train["launches"]
+    stream_launches = timed("stream-train", phase_stream_train, seed, device_info)
+    launches += stream_launches
     tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_video_")
     try:
         video = timed("video-train", phase_video_train, seed, device_info, tmp)
         timed("video-serve", phase_video_serve, video, device_info)
+        crop_launches = timed("crop-train", phase_crop_train, seed, device_info, tmp)["launches"]
+        crop_launches += timed("mp4", phase_mp4, seed, device_info, tmp)
         av = timed("av-train", phase_av_train, seed, device_info, tmp)
         launches += av["launches"]
         launches += timed("av-serve", phase_av_serve, av, device_info)
@@ -2246,6 +2857,9 @@ def main(argv=None) -> int:
         launches += acv["launches"]
         launches += timed("acv-serve", phase_acv_serve, acv, device_info)
         launches += timed("frozen", phase_frozen, seed, device_info, acv)
+        timed("graphs", phase_graphs, seed, device_info, tmp, {
+            "audio_video": av["datasets"]["train"], "audio_cues_video": acv["datasets"]["train"],
+            "cues": cues["datasets"]["train"], "audio_cues": ac["datasets"]["train"]})
         timed("zoo", phase_zoo, seed, device_info, av, video["best"], tmp, cues, ac, cv, acv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2264,7 +2878,21 @@ def main(argv=None) -> int:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
-        "paths": ["serve", "train", "av-train", "av-serve", "ac-train", "ac-serve", "acv-train", "acv-serve", "frozen"],
+        "paths": ["serve", "train", "stream-train", "av-train", "av-serve", "ac-train", "ac-serve", "acv-train",
+                  "acv-serve", "frozen"],
+    }, {
+        "name": "crop_resize",
+        "route": "cuda",
+        "source": "multimodal_lipread_torch/csrc/crop_resize.cu",
+        "replaces": "multimodal_lipread_tpu/ops/crop_resize.py:139",
+        "launches": crop_launches,
+        "max_abs_err": crop["max_abs_err"],
+        "ms": crop["rows"][CROP_CLIPS[0]]["ms"],
+        "plain_ms": crop["rows"][CROP_CLIPS[0]]["plain_ms"],
+        "bound_ms": crop["rows"][CROP_CLIPS[0]]["bound_ms"],
+        "bound_by": crop["rows"][CROP_CLIPS[0]]["bound_by"],
+        "library_ms": crop["rows"][CROP_CLIPS[0]]["library_ms"],
+        "paths": ["crop-train", "mp4"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

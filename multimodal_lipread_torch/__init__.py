@@ -3,8 +3,9 @@
 Module paths mirror the JAX package so each counterpart is easy to find.
 The port imports ``torch`` and never JAX or the JAX package. Its entry
 points run on a CUDA card unless the caller passes ``device="cpu"``; its
-one hand-written kernel, the log-mel frontend (``ops/logmel_cuda.py`` +
-``csrc/logmel.cu``), is built with plain ``nvcc`` at first use.
+hand-written kernels, the log-mel frontend (``ops/logmel_cuda.py`` +
+``csrc/logmel.cu``) and the lip crop (``ops/crop_resize_cuda.py`` +
+``csrc/crop_resize.cu``), are built with plain ``nvcc`` at first use.
 
 Ported so far, trained (``pipelines/``, ``train/trainer.py``) and served
 (``serving.py``): the audio pipeline with its eight models (WAV clips →
@@ -13,8 +14,12 @@ BiLSTM → classifier), the video-only pipeline with its eight models (uint8
 lip tensors → frame backbone over every frame → BiLSTM, attention,
 Transformer, conformer or temporal convolutions → classifier), and the
 audio_video fusion pipeline with the reference's seven models (both
-halves, joined clip by clip); ``model.pretrained`` grafts converted
-backbone weights into any of them. See ROADMAP.md for what remains.
+halves, joined clip by clip), the cue classifiers and the audio_cues,
+cues_video and audio_cues_video fusions; ``model.pretrained`` grafts
+converted backbone weights into any of them. Training also streams
+(``data/grain_loader.py``: WAV clips, ``.npy`` lips, or ``.mp4`` clips
+cropped on the host or by the crop kernel in the train step) and runs
+device-resident steps as CUDA graphs. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

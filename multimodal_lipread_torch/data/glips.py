@@ -125,8 +125,7 @@ def scan_lip_regions(lip_root: str, splits: Sequence[str] = SPLITS) -> GlipsInde
     if not os.path.isdir(lip_root):
         raise FileNotFoundError(
             f"Lip-region directory not found: {lip_root}. Run the lip-extraction "
-            f"preprocessing first (python -m multimodal_lipread_tpu.data.lip_extraction; "
-            f"not ported to PyTorch yet, ROADMAP.md Queue 1 #11)."
+            f"preprocessing first (python -m multimodal_lipread_torch.data.lip_extraction --root <GLips root>)."
         )
     entries: Dict[Tuple[str, str, str], ClipEntry] = {}
     words = set()

@@ -1,13 +1,15 @@
 """Synthetic mini-GLips corpus: audio clips, lip-region tensors and cue
-descriptions (the JAX package's ``data/synthetic.py``, numpy only; its
-rendered .mp4 files are not ported).
+descriptions, and rendered ``.mp4`` videos (the JAX package's
+``data/synthetic.py``; numpy, and OpenCV for the videos only).
 
 Writes ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.wav`` (16 kHz
 PCM16, 1.25 s), ``<root>_lip_regions/lipread_files/<word>/<split>/
 <word>_NNNN-NNNN.npy`` ((29, 44, 44, 3) uint8) and
 ``<root>/Descriptions_{Emotion,Environment}/lipreading_analysis_results_
 {mode}_{word}_{split}.json`` (lists of ``{word, sequence_id,
-description}``) with class-conditional signals, so models can fit the
+description}``) and ``<root>/lipread_files/<word>/<split>/<word>_NNNN-NNNN.mp4``
+(the clip's lips rendered into the centre backend's box of 96 × 96
+frames) with class-conditional signals, so models can fit the
 corpus: for audio a harmonic stack at a class-specific pitch (up to 8
 classes) or a two-tone grid code (more classes); for lips a class-specific
 brightness and stripe period (up to 8 classes) or a brightness × stripe
@@ -256,6 +258,27 @@ def _synth_description_compositional(
     )) + "."
 
 
+def _write_synth_video(path: str, lips: np.ndarray, frame_size=(96, 96)) -> None:
+    """Render a lip sequence into an ``.mp4`` (OpenCV's ``mp4v``) whose
+    centre-backend lip box (``data/lip_extraction._CenterBackend`` with the
+    0.4 margin) carries the 44 × 44 signal, upscaled, on a grey frame: the
+    raw-video counterpart of the ``.npy`` lip store, for the streaming video
+    paths (host decode, then the crop on the host or on the device)."""
+    import cv2
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    H, W = frame_size
+    x0, y0, x1, y1 = W // 3, H // 2, 2 * W // 3, 5 * H // 6
+    mh, mw = int((y1 - y0) * 0.4), int((x1 - x0) * 0.4)
+    bx0, by0, bx1, by1 = max(0, x0 - mw), max(0, y0 - mh), min(W, x1 + mw), min(H, y1 + mh)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (W, H))
+    for frame_rgb_44 in lips:
+        frame = np.full((H, W, 3), 128, np.uint8)
+        frame[by0:by1, bx0:bx1] = cv2.resize(frame_rgb_44, (bx1 - bx0, by1 - by0))
+        writer.write(frame[..., ::-1])  # RGB → BGR for the encoder
+    writer.release()
+
+
 def make_synthetic_glips(
     root: str,
     words: Sequence[str] = DEFAULT_WORDS,
@@ -268,14 +291,17 @@ def make_synthetic_glips(
     with_lip_regions: bool = False,
     with_cues: bool = False,
     cue_style: str = "slice",
+    with_video: bool = False,
 ) -> str:
     """Write a synthetic GLips tree under ``root``; returns ``root``.
 
     ``with_audio`` writes the WAV clips, ``with_lip_regions`` the lip
     tensors into the mirror tree ``<root>_lip_regions``, ``with_cues`` one
     emotion and one environment description per clip into the cue store
-    under ``root`` (``cue_style`` 'slice' or 'compositional'); the default
-    is audio only. ``hardness`` is a float or a mapping with ``audio``,
+    under ``root`` (``cue_style`` 'slice' or 'compositional'),
+    ``with_video`` an ``.mp4`` per clip beside the WAVs, rendered from the
+    clip's lip tensor (one draw feeds both stores); the default is audio
+    only. ``hardness`` is a float or a mapping with ``audio``,
     ``video`` and ``cues`` keys (the JAX function's per-modality form). ``label_noise``
     redraws the signal class of that fraction of train clips while the
     folder word (the label) stays. Sequence ids run ``0000-0001``,
@@ -317,10 +343,14 @@ def make_synthetic_glips(
                 if with_audio:
                     path = os.path.join(root, "lipread_files", word, split, f"{word}_{sid}.wav")
                     write_wav(path, _synth_waveform(rng, sig_ci, len(words), h_audio))
+                if with_lip_regions or with_video:
+                    lips = _synth_lip_sequence(rng, sig_ci, len(words), h_video)
                 if with_lip_regions:
                     path = os.path.join(lip_root, "lipread_files", word, split, f"{word}_{sid}.npy")
                     os.makedirs(os.path.dirname(path), exist_ok=True)
-                    np.save(path, _synth_lip_sequence(rng, sig_ci, len(words), h_video))
+                    np.save(path, lips)
+                if with_video:
+                    _write_synth_video(os.path.join(root, "lipread_files", word, split, f"{word}_{sid}.mp4"), lips)
                 if with_cues:
                     for mode in ("emotion", "environment"):
                         cue_records[(mode, word, split)].append({

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 BUILD_TIMEOUT_S = 300
 # every kernel source under csrc/, by name
-KERNELS = ("logmel",)
+KERNELS = ("logmel", "crop_resize")
 
 
 @dataclasses.dataclass

@@ -12,10 +12,15 @@ keeping the best-val checkpoint and running the final test on it. Logs go
 to ``<output.base_dir>/metrics``, checkpoints (``<model>_best.pt``, which
 ``serving.py`` serves) to ``<output.base_dir>/models_trained``.
 
+``dataset.streaming: true`` streams the waveforms per epoch instead
+(``data/grain_loader.AudioClipSource``, ``dataset.num_workers`` loader
+processes), and the model is wrapped in ``WaveToLogMel``: the log-mel
+kernel runs inside every train and eval step's forward.
+
 ``model.pretrained`` grafts converted backbone weights after the
 initialization (``pipelines/common.load_pretrained_backbones``). Not
-ported yet: ``dataset.streaming: true`` (the grain loader, ROADMAP.md
-Queue 1 #11) raises ``NotImplementedError``.
+ported yet: ``dataset.loader_backend: native`` (the C++ prefetcher,
+ROADMAP.md Queue 1 #11) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ from __future__ import annotations
 from typing import Any, Dict, Union
 
 from multimodal_lipread_torch.config import Config
+from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips
+from multimodal_lipread_torch.data.grain_loader import AudioClipSource
 from multimodal_lipread_torch.models.audio import get_audio_model
+from multimodal_lipread_torch.models.frontend import WaveToLogMel
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
     load_audio_datasets,
@@ -31,6 +39,8 @@ from multimodal_lipread_torch.pipelines.common import (
     maybe_plot,
     model_dtype,
     parse_cli,
+    refuse_native_loader,
+    streaming_datasets,
     trainer_extras,
 )
 from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
@@ -42,18 +52,19 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
-    if bool(cfg.get("dataset.streaming", False)):
-        raise NotImplementedError(
-            "dataset.streaming: true (the grain loader) is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1 #11)"
-        )
-
+    refuse_native_loader(cfg)
     root_dir = cfg.get("dataset.root_dir")
     num_classes = cfg.get("dataset.num_classes", 4)
     input_size = cfg.get("dataset.input_size", 117)
     model_name = cfg.get("model.name", "resnet")
 
-    datasets, index = load_audio_datasets(root_dir, input_size=input_size, device=device)
+    streaming = bool(cfg.get("dataset.streaming", False))
+    if streaming:
+        index = scan_glips(root_dir, exts=AUDIO_EXTS)
+        datasets = streaming_datasets(cfg, lambda split: AudioClipSource(index.by_split(split), index.class_to_idx),
+                                      ("waveform",))
+    else:
+        datasets, index = load_audio_datasets(root_dir, input_size=input_size, device=device)
     if len(index.classes) != num_classes:
         raise ValueError(
             f"config says {num_classes} classes but found "
@@ -65,6 +76,8 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         dtype=model_dtype(cfg),
         d_model=cfg.get("model.d_model"),  # the conformer's width
     )
+    if streaming:
+        model = WaveToLogMel(model, input_size=input_size)
     metrics_dir, ckpt_dir = default_dirs(cfg, "audio")
     trainer = Trainer(
         model,

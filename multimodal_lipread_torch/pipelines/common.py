@@ -6,7 +6,9 @@ Audio features are computed once, up front, on the device: every split's
 clips are decoded on the host (the threaded native decoder) and featurized
 by the log-mel kernel in chunks of 256 clips. Lip tensors are loaded once
 and kept uint8 on the host; the trainer and the predictor scale them to
-[0, 1] on the device.
+[0, 1] on the device. The streaming branches (``dataset.streaming`` and
+the video pipeline's ``device_crop`` / ``host_crop_streaming``) read one
+epoch at a time through ``streaming_datasets`` instead.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from multimodal_lipread_torch.config import Config, coerce_yaml_scalar, load_config
 from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES, load_waveform
 from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, scan_glips, scan_lip_regions
+from multimodal_lipread_torch.data.grain_loader import StreamingDataset
 from multimodal_lipread_torch.ops.logmel_cuda import log_mel
 from multimodal_lipread_torch.train.trainer import ArrayDataset
 
@@ -217,6 +220,20 @@ def load_pretrained_backbones(trainer: Any, cfg: Config) -> int:
     return len(specs)
 
 
+def refuse_native_loader(cfg: Config) -> None:
+    """``dataset.loader_backend: native`` (the C++ prefetcher) is not ported."""
+    if cfg.get("dataset.streaming", False) and cfg.get("dataset.loader_backend", "grain") == "native":
+        raise NotImplementedError("dataset.loader_backend: native (the C++ streaming prefetcher) is not ported "
+                                  "to PyTorch yet (ROADMAP.md, Queue 1 #11)")
+
+
+def streaming_datasets(cfg: Config, source, input_keys: tuple) -> dict:
+    """One ``StreamingDataset`` per split over ``source(split)``."""
+    return {split: StreamingDataset(source(split), input_keys=input_keys, seed=cfg.get("training.seed", 0),
+                                    worker_count=cfg.get("dataset.num_workers", 0))
+            for split in SPLITS}
+
+
 def parse_cli(default_config: Optional[str] = None, argv: Optional[Sequence[str]] = None) -> Config:
     """``--config path.yaml [--set a.b=c ...] [--resume] [--device cuda|cpu]``
     → Config with the overrides applied; ``_cli.resume`` and ``_cli.device``
@@ -258,8 +275,9 @@ def model_dtype(cfg) -> torch.dtype:
 
 def trainer_extras(cfg: Config, default_warmup_epochs: float = 0.0) -> dict:
     """The ``training.*`` TrainerConfig knobs common to every pipeline, as
-    the JAX package reads them. Unported ones are passed on, so that the
-    trainer raises for them when they are set; ``dropout_rng_impl`` names a
+    the JAX package reads them (the orbax ``checkpoint_backend``, which the
+    port does not run, is passed on so that the trainer raises for it);
+    ``dropout_rng_impl`` names a
     JAX PRNG and has no counterpart here (torch draws dropout from Philox).
     ``default_warmup_epochs`` is a pipeline's own LR warmup where the config
     sets none (audio_cues ships 2 epochs; ``training.warmup_epochs: 0``

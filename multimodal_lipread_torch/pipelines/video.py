@@ -16,11 +16,22 @@ checkpoints in the reference's format. Logs go to
 checkpoints (``<model>_best.pt``, which ``serving.py`` serves) to
 ``<output.base_dir>/models_trained``.
 
+Streaming, per epoch, instead of the whole corpus in memory
+(``data/grain_loader.py``, ``dataset.num_workers`` loader processes):
+
+- ``dataset.device_crop``: the raw ``.mp4`` clips under
+  ``dataset.root_dir`` are decoded on the host and their lips detected
+  (``dataset.landmark_backend``); the full uint8 frames and the boxes cross
+  to the card, where the crop kernel (``ops/crop_resize_cuda.py``) cuts the
+  44 × 44 lips inside the train step, as the trainer's ``device_preproc``;
+- ``dataset.host_crop_streaming``: the same clips decoded, detected and
+  cropped on the host (the reference's layout);
+- ``dataset.streaming``: the ``.npy`` lip tensors of the mirror tree.
+
 ``model.pretrained`` grafts converted backbone weights after the
 initialization (``pipelines/common.load_pretrained_backbones``). Not
-ported yet: ``dataset.streaming`` (ROADMAP.md Queue 1 #11),
-``dataset.device_crop`` (#8.5) and ``dataset.host_crop_streaming`` (#11)
-raise ``NotImplementedError``.
+ported yet: ``dataset.loader_backend: native`` (the C++ prefetcher,
+ROADMAP.md Queue 1 #11) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ import os
 from typing import Any, Dict, Union
 
 from multimodal_lipread_torch.config import Config
-from multimodal_lipread_torch.data.glips import lip_regions_root, lipread_files_dir
+from multimodal_lipread_torch.data.glips import lip_regions_root, lipread_files_dir, scan_glips, scan_lip_regions
+from multimodal_lipread_torch.data.grain_loader import FullFrameClipSource, HostCropClipSource, LipClipSource
 from multimodal_lipread_torch.models.video import get_video_model
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
@@ -38,15 +50,13 @@ from multimodal_lipread_torch.pipelines.common import (
     maybe_plot,
     model_dtype,
     parse_cli,
+    refuse_native_loader,
+    streaming_datasets,
     trainer_extras,
 )
 from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
 
-_UNPORTED = (
-    ("dataset.streaming", "streaming lip records (the grain loader)", "Queue 1 #11"),
-    ("dataset.device_crop", "the crop/resize/pad of full frames on the device", "Queue 1 #8.5"),
-    ("dataset.host_crop_streaming", "host decode + crop of full frames per epoch", "Queue 1 #11"),
-)
+VIDEO_EXTS = (".mp4", ".avi")
 
 
 def resolve_lip_root(cfg: Config) -> str:
@@ -72,11 +82,26 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
-    for key, what, item in _UNPORTED:
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} ({what}) is not ported to PyTorch yet (ROADMAP.md, {item})")
+    refuse_native_loader(cfg)
+    backend = cfg.get("dataset.landmark_backend", "auto")
+    extra = {}
+    if cfg.get("dataset.device_crop", False):
+        index = scan_glips(cfg.get("dataset.root_dir"), exts=VIDEO_EXTS)
+        datasets = streaming_datasets(cfg, lambda split: FullFrameClipSource(
+            index.by_split(split), index.class_to_idx, backend=backend), ("frames", "boxes"))
+        from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
 
-    datasets, index = load_video_datasets(resolve_lip_root(cfg))
+        extra["device_preproc"] = device_crop
+    elif cfg.get("dataset.host_crop_streaming", False):
+        index = scan_glips(cfg.get("dataset.root_dir"), exts=VIDEO_EXTS)
+        datasets = streaming_datasets(cfg, lambda split: HostCropClipSource(
+            index.by_split(split), index.class_to_idx, backend=backend), ("lip_regions",))
+    elif cfg.get("dataset.streaming", False):
+        index = scan_lip_regions(resolve_lip_root(cfg))
+        datasets = streaming_datasets(cfg, lambda split: LipClipSource(index.by_split(split), index.class_to_idx),
+                                      ("lip_regions",))
+    else:
+        datasets, index = load_video_datasets(resolve_lip_root(cfg))
     num_classes = cfg.get("dataset.num_classes", len(index.classes))
     if num_classes != len(index.classes):
         raise ValueError(
@@ -111,6 +136,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             test_every_epoch=True,
             rolling_checkpoint=True,
             log_txt_header=True,
+            **extra,
             **trainer_extras(cfg),
         ),
         device=device,

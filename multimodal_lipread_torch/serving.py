@@ -35,14 +35,18 @@ reads: ``dataset.audio_input_size`` for audio_video (the JAX package's
 serving reads ``dataset.input_size`` there; ROADMAP.md Queue 3 notes it),
 ``dataset.input_size`` for audio_cues and audio_cues_video.
 
-Not ported yet (ROADMAP.md): data-parallel serving, graph export,
-``device_preproc``.
+``Predictor(device_preproc=...)`` runs a function on the device batch
+before the cast, as the trainer's ``device_preproc`` does: with
+``ops/crop_resize_cuda.device_crop`` a video predictor serves full decoded
+frames and lip boxes, the crop kernel cutting the lips on the card.
+
+Not ported yet (ROADMAP.md): data-parallel serving, graph export.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,17 +56,20 @@ from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_modu
 from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
 
 
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → device tensor; uint8 inputs (lip tensors) cross at 1/4
-    of the float bytes and are scaled to [0, 1] on the device, int16
-    waveforms cross at 1/2 and are cast to float32 there; int32 token ids
-    cross as they are."""
-    t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+def _cast(t: torch.Tensor) -> torch.Tensor:
+    """uint8 inputs (lip tensors) are scaled to [0, 1] on the device, int16
+    waveforms cast to float32 there; int32 token ids stay as they are."""
     if t.dtype == torch.uint8:
         return t.to(torch.float32) / 255.0
     if t.dtype == torch.int16:
         return t.to(torch.float32)
     return t
+
+
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → device tensor, cast there (:func:`_cast`): uint8 crosses
+    at 1/4 of the float bytes, int16 at 1/2."""
+    return _cast(torch.from_numpy(np.ascontiguousarray(x)).to(device))
 
 
 @dataclasses.dataclass
@@ -74,17 +81,21 @@ class Predictor:
     model: nn.Module
     batch_size: int = 32
     device: str = "cuda"
+    # ``(*inputs) -> tuple(inputs)`` on the device batch before the cast,
+    # e.g. ops/crop_resize_cuda.device_crop: (frames, boxes) → (lips,)
+    device_preproc: Optional[Callable[..., tuple]] = None
 
     def __post_init__(self):
         self.model = self.model.to(self.device).eval()
 
     @classmethod
     def from_checkpoint(
-        cls, model: nn.Module, ckpt_path: str, batch_size: int = 32, device: str = "cuda"
+        cls, model: nn.Module, ckpt_path: str, batch_size: int = 32, device: str = "cuda",
+        device_preproc: Optional[Callable[..., tuple]] = None,
     ) -> "Predictor":
         """Restore a checkpoint (``{epoch, state, val_acc, ...}``) into ``model``."""
         load_module_state(model, load_checkpoint(ckpt_path)["state"])
-        return cls(model=model, batch_size=batch_size, device=device)
+        return cls(model=model, batch_size=batch_size, device=device, device_preproc=device_preproc)
 
     def predict_logits(self, *inputs: np.ndarray) -> np.ndarray:
         """Any-N inputs → (N, num_classes) float32 logits via fixed-size batches."""
@@ -99,7 +110,10 @@ class Predictor:
                         np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1))
                         for a in chunk
                     )
-                logits = self.model(*(_to_device(a, self.device) for a in chunk))
+                xs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in chunk)
+                if self.device_preproc is not None:  # zero boxes pad to blank frames
+                    xs = tuple(self.device_preproc(*xs))
+                logits = self.model(*(_cast(x) for x in xs))
                 out.append(logits[:k].float().cpu().numpy())
         return np.concatenate(out, axis=0) if out else np.zeros((0, 0), np.float32)
 

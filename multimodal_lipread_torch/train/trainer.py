@@ -38,10 +38,44 @@ keys have no torch counterpart, so trajectories match the JAX trainer's
 only with dropout off). A float32 model trains without TF32
 (``utils/precision.py``).
 
-Not ported yet (ROADMAP.md, Queue 1 #5): the knobs in ``UNPORTED_KNOBS``
-raise ``NotImplementedError`` when set; multi-host runs and preemption
-handling. The trainer runs on ``device`` ("cuda" unless the caller asks for
-the CPU).
+Data: an ``ArrayDataset`` (the whole corpus in host memory), or a
+``data.grain_loader.StreamingDataset`` read one epoch at a time, whose
+short last batch is padded with its own rows (``np.resize``) at weight 0;
+either way host batches are gathered and pinned ``host_prefetch`` ahead in
+a side thread. ``device_preproc`` runs on the device batch before the uint8
+/255 cast (e.g. ``ops/crop_resize_cuda.device_crop`` on full frames and lip
+boxes).
+
+``device_resident`` keeps an ``ArrayDataset`` on the device (a cache of
+three, held by identity); only int64 indices and float32 weights cross per
+batch. ``steps_per_dispatch`` K > 1 groups K such batches: on the card a
+``torch.cuda.CUDAGraph`` holds K train steps (and one an eval group), each
+gathering its batch from static (K, batch) index and weight buffers, with
+the dropout generator registered so that every replay draws the masks K
+eager steps would; the first group runs eagerly and counts, then the graph
+is captured; a tail shorter than K runs step by step. On the CPU the groups
+run eagerly. A device-resident trainer on the card keeps Adam
+``capturable`` (step counts and the LR on the device), eager or graphed, so
+both take the same arithmetic. A per-step LR, or a dataset that is not a
+device-resident ``ArrayDataset``, falls back to per-step dispatch with the
+JAX trainer's warnings.
+
+``remat`` recomputes the forward in the backward
+(``torch.utils.checkpoint``), restoring the dropout generator and the
+BatchNorm statistics around the recompute so that it draws the same masks
+and moves nothing twice; it is refused under CUDA graphs. ``mixup_alpha``
+mixes full batches after the cast (``data/augment.py``), with soft-label
+cross entropy. ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
+the first epoch. ``handle_preemption`` turns SIGTERM/SIGINT into
+``request_preemption``: the step in flight finishes, the rolling checkpoint
+is written from a host snapshot of the epoch's start (the dropout
+generator's state included) labelled ``epoch - 1``, and ``fit`` returns
+``preempted=True``; ``--resume`` replays that epoch exactly.
+
+Not ported (ROADMAP.md): ``param_partition_rules`` (tensor parallelism,
+Queue 1 #12) and the orbax ``checkpoint_backend`` raise
+``NotImplementedError``. The trainer runs on ``device`` ("cuda" unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -50,6 +84,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,6 +92,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_lipread_torch.data.augment import draw_mixup, mixup
 from multimodal_lipread_torch.nn.common import Dropout, flax_init_
 from multimodal_lipread_torch.train.checkpoint import (
     load_checkpoint,
@@ -123,30 +159,32 @@ class TrainerConfig:
     checkpoint_backend: str = "msgpack"
     # parameter subtrees (JAX path prefixes) that get no update
     frozen_param_prefixes: Tuple[Tuple[str, ...], ...] = ()
-    # not ported yet: each raises NotImplementedError when set (UNPORTED_KNOBS)
+    # a torch.profiler Chrome trace of the first epoch goes here
     profile_dir: Optional[str] = None
+    # > 0: mixup of full batches with λ ~ Beta(α, α) (data/augment.py)
     mixup_alpha: float = 0.0
+    # recompute the forward in the backward (torch.utils.checkpoint)
     remat: bool = False
+    # keep ArrayDatasets on the device and gather each batch there by index
     device_resident: bool = False
+    # K > 1: K device-resident steps per dispatch (a CUDA graph on the card)
     steps_per_dispatch: int = 1
+    # SIGTERM/SIGINT: finish the step, checkpoint the epoch's start, return
     handle_preemption: bool = False
+    # tensor parallelism: not ported (UNPORTED_KNOBS)
     param_partition_rules: Tuple[Any, ...] = ()
+    # ``(*inputs) -> tuple(inputs)`` on the device batch before the cast
     device_preproc: Optional[Callable[..., tuple]] = None
 
 
-# TrainerConfig knobs of the JAX trainer that the port does not run yet,
-# with the value that leaves them off
+# TrainerConfig knobs of the JAX trainer that the port does not run, with
+# the value that leaves them off
 UNPORTED_KNOBS: Dict[str, Any] = {
-    "profile_dir": None,
-    "mixup_alpha": 0.0,
-    "remat": False,
-    "device_resident": False,
-    "steps_per_dispatch": 1,
-    "handle_preemption": False,
     "param_partition_rules": (),
-    "device_preproc": None,
     "checkpoint_backend": "msgpack",
 }
+_UNPORTED_WHERE = {"param_partition_rules": "Queue 1 #12: tensor parallelism",
+                   "checkpoint_backend": "Queue 1: the orbax backends have no counterpart"}
 
 
 def check_ported(config: TrainerConfig) -> None:
@@ -155,8 +193,7 @@ def check_ported(config: TrainerConfig) -> None:
         value = getattr(config, name)
         if value is not off and value != off:
             raise NotImplementedError(
-                f"TrainerConfig.{name}={value!r} is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1)"
+                f"TrainerConfig.{name}={value!r} is not ported to PyTorch (ROADMAP.md, {_UNPORTED_WHERE[name]})"
             )
 
 
@@ -174,7 +211,12 @@ class _Metrics:
         self.sums = torch.zeros(4, dtype=torch.float64, device=device)
 
     def push(self, stats: torch.Tensor) -> None:
-        self.sums += stats.double()
+        """Add one step's stats, or a (K, 4) group's rows in order (a
+        running sum, so a group adds up as K pushes would)."""
+        if stats.ndim == 1:
+            self.sums += stats.double()
+        else:
+            self.sums = torch.cat([self.sums[None], stats.double()]).cumsum(0)[-1]
 
     def result(self) -> EpochMetrics:
         loss_sum, correct, count, wsum = self.sums.tolist()
@@ -230,6 +272,56 @@ def _host_prefetch_iter(it: Iterator, depth: int) -> Iterator:
         t.join(timeout=5.0)
 
 
+def _to_cpu(tree: Any) -> Any:
+    """A copy of a nest of dicts, lists and tensors with every tensor cloned
+    onto the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+class _StepGroupGraph:
+    """K calls of ``step(idx, weights)`` captured as one CUDA graph.
+
+    The static (K, batch) index and weight buffers feed the calls; the graph
+    returns the sum of their (Σ loss·w, correct, Σ weights, Σ w). Building
+    it runs the first group for real, eagerly, on the capture stream (so
+    that lazily made state, Adam's moments, cuBLAS workspaces and the
+    log-mel kernel's scratch, exists before capture), and then captures the
+    same K calls, which run no work. ``generator`` (the dropout generator)
+    is registered with the graph: each replay draws from where the last
+    draw left it, as eager steps do. Both return the (K, 4) stats of the
+    K calls."""
+
+    def __init__(self, step: Callable, idxs: np.ndarray, ws: np.ndarray, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.idx = torch.from_numpy(idxs).to(device)
+        self.w = torch.from_numpy(ws).to(device)
+        k = self.idx.shape[0]
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self.first = torch.stack([step(self.idx[i], self.w[i]) for i in range(k)])
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = torch.stack([step(self.idx[i], self.w[i]) for i in range(k)])
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+    def replay(self, idxs: np.ndarray, ws: np.ndarray) -> torch.Tensor:
+        """Run the K steps on these batches; the result is overwritten by the
+        next replay, so read it (or add it up) on the stream before that."""
+        self.idx.copy_(torch.from_numpy(idxs))
+        self.w.copy_(torch.from_numpy(ws))
+        self.graph.replay()
+        return self.out
+
+
 class Trainer:
     """Single-device trainer (``device`` "cuda" unless the caller asks for
     the CPU)."""
@@ -265,6 +357,11 @@ class Trainer:
         self._lr_step_fn: Optional[Callable[[int], float]] = None
         # keyword arguments every forward receives (set_apply_kwargs)
         self._apply_kwargs: Dict[str, Any] = {}
+        # Adam keeps its step counts and LR on the card where graphs may run
+        self._capturable = self.device.type == "cuda" and config.device_resident
+        self._device_data: Dict[int, Tuple[Any, Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]] = {}
+        self._graphs: Dict[Tuple[str, int], _StepGroupGraph] = {}
+        self._preempted = False
 
     # ------------------------------------------------------------ setup
 
@@ -294,11 +391,14 @@ class Trainer:
         """Redraw the parameters with Flax's initializers from ``seed`` and
         start a fresh Adam; returns the model."""
         flax_init_(self.model, torch.Generator().manual_seed(self.config.seed))
+        lr = self.config.learning_rate
         self.optimizer = torch.optim.Adam(
-            self.trainable_parameters(), lr=self.config.learning_rate,
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=self.config.weight_decay,
+            self.trainable_parameters(),
+            lr=torch.tensor(lr, dtype=torch.float32, device=self.device) if self._capturable else lr,
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=self.config.weight_decay, capturable=self._capturable,
         )
         self.step = 0
+        self._graphs.clear()
         return self.model
 
     def ensure_initialized(self) -> None:
@@ -315,8 +415,26 @@ class Trainer:
         self._apply_kwargs.update(kwargs)
 
     def _set_lr(self, lr: float) -> None:
+        """Write ``lr`` into Adam: into its LR tensor where it is capturable
+        (a graph reads that tensor), else as the group's float."""
         for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(float(lr))
+            else:
+                group["lr"] = float(lr)
+
+    def _conform_optimizer(self) -> None:
+        """After loading an optimizer state written with or without
+        ``capturable``: this trainer's flag, its LR as a device tensor or a
+        float, and the step counts on the device or the CPU."""
+        for group in self.optimizer.param_groups:
+            lr = float(group["lr"])
+            group["capturable"] = self._capturable
+            group["lr"] = torch.tensor(lr, dtype=torch.float32, device=self.device) if self._capturable else lr
+        for state in self.optimizer.state.values():
+            if "step" in state:
+                state["step"] = state["step"].to(device=self.device if self._capturable else "cpu",
+                                                 dtype=torch.float32)
 
     # ------------------------------------------------------------ steps
 
@@ -330,8 +448,49 @@ class Trainer:
             return x.to(dtype)
         return x
 
+    def _prepare_inputs(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """``device_preproc`` (e.g. the crop of full frames to lips), then
+        the cast of :meth:`_prepare`."""
+        if self.config.device_preproc is not None:
+            inputs = tuple(self.config.device_preproc(*inputs))
+        return tuple(self._prepare(x) for x in inputs)
+
     def _example_weights(self, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         return weights if self._class_weights is None else weights * self._class_weights[labels]
+
+    def _remat_contexts(self):
+        """``torch.utils.checkpoint``'s (forward, recompute) contexts: the
+        recompute runs from the dropout generator's state at the forward
+        and with the BatchNorm statistics kept as the forward left them, so
+        it draws the same masks and moves no statistic twice."""
+        generator = self.dropout_generator
+        at_forward = generator.get_state()
+        buffers = list(self.model.buffers())
+
+        @contextlib.contextmanager
+        def recompute():
+            after = generator.get_state()
+            kept = [b.clone() for b in buffers]
+            generator.set_state(at_forward)
+            try:
+                yield
+            finally:
+                generator.set_state(after)
+                with torch.no_grad():
+                    for b, k in zip(buffers, kept):
+                        b.copy_(k)
+
+        return contextlib.nullcontext(), recompute()
+
+    def _train_forward(self, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        def forward(*xs):
+            return self.model(*xs, **self._apply_kwargs)
+
+        if not self.config.remat:
+            return forward(*inputs)
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(forward, *inputs, use_reentrant=False, context_fn=self._remat_contexts)
 
     def train_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
@@ -339,10 +498,20 @@ class Trainer:
         (Σ loss·w, correct, Σ weights, Σ w); nothing is read back."""
         self.model.train()
         with model_precision(self.compute_dtype):
-            logits = self.model(*(self._prepare(x) for x in inputs), **self._apply_kwargs).float()
+            xs = self._prepare_inputs(inputs)
             w = self._example_weights(labels, weights)
             wsum = w.sum()
-            loss = (F.cross_entropy(logits, labels, reduction="none") * w).sum() / wsum.clamp_min(1e-9)
+            target = labels
+            if self.config.mixup_alpha > 0:
+                lam, perm = draw_mixup(self.dropout_generator, labels.shape[0], self.config.mixup_alpha, self.device)
+                onehot = F.one_hot(labels, self.config.num_classes).to(torch.float32)
+                mixed, mixed_onehot = mixup(xs, onehot, lam, perm)
+                # only full batches mix: a weight-0 padding row would leak in
+                full = weights.sum() == weights.shape[0]
+                xs = tuple(torch.where(full, m, x) for m, x in zip(mixed, xs))
+                target = torch.where(full, mixed_onehot, onehot)
+            logits = self._train_forward(xs).float()
+            loss = (F.cross_entropy(logits, target, reduction="none") * w).sum() / wsum.clamp_min(1e-9)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         self.optimizer.step()
@@ -358,18 +527,27 @@ class Trainer:
         device tensor (Σ loss·w, correct, Σ weights, Σ w)."""
         self.model.eval()
         with model_precision(self.compute_dtype):
-            logits = self.model(*(self._prepare(x) for x in inputs), **self._apply_kwargs).float()
+            logits = self.model(*self._prepare_inputs(inputs), **self._apply_kwargs).float()
         w = self._example_weights(labels, weights)
         ce = F.cross_entropy(logits, labels, reduction="none")
         correct = ((logits.argmax(-1) == labels).float() * weights).sum()
         return torch.stack([(ce * w).sum(), correct, weights.sum(), w.sum()])
 
+    def train_step_idx(self, data: Tuple[torch.Tensor, ...], labels_all: torch.Tensor, idx: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+        """:meth:`train_step` on the rows ``idx`` of a device-resident dataset."""
+        return self.train_step(tuple(d[idx] for d in data), labels_all[idx], weights)
+
+    def eval_step_idx(self, data: Tuple[torch.Tensor, ...], labels_all: torch.Tensor, idx: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+        return self.eval_step(tuple(d[idx] for d in data), labels_all[idx], weights)
+
     # ------------------------------------------------------------ batching
 
-    def host_batches(self, ds: ArrayDataset, shuffle: bool, rng: np.random.Generator):
-        """Yield fixed-size numpy batches ``(inputs, labels, weights)``; a
-        short last batch is padded with real examples at weight 0."""
-        n = len(ds)
+    def _index_batches_host(self, n: int, shuffle: bool, rng: np.random.Generator):
+        """Yield (int64 indices, float32 weights) of fixed-size batches over
+        ``n`` examples; a short last batch is padded with real examples at
+        weight 0."""
         order = rng.permutation(n) if shuffle else np.arange(n)
         bs = self.batch_size
         for start in range(0, n, bs):
@@ -380,21 +558,120 @@ class Trainer:
             if k < bs:
                 fill = order[: bs - k] if n >= bs else np.resize(order, bs - k)
                 idx = np.concatenate([idx, fill.astype(idx.dtype)])
+            yield idx.astype(np.int64), weights
+
+    def host_batches(self, ds: ArrayDataset, shuffle: bool, rng: np.random.Generator):
+        """Yield fixed-size numpy batches ``(inputs, labels, weights)``; a
+        short last batch is padded with real examples at weight 0."""
+        for idx, weights in self._index_batches_host(len(ds), shuffle, rng):
             yield tuple(a[idx] for a in ds.inputs), ds.labels[idx].astype(np.int64), weights
 
-    def batches(self, ds: ArrayDataset, shuffle: bool, rng: np.random.Generator):
-        """``host_batches`` on the device: gathered (and pinned, for a card)
-        ``host_prefetch`` batches ahead, copied without blocking."""
+    def stream_batches(self, ds: Any, epoch: int, shuffle: bool):
+        """Yield fixed-size numpy batches of a ``StreamingDataset``'s epoch:
+        a short loader batch is padded by repeating its own rows
+        (``np.resize``) at weight 0, and a shard with fewer batches than the
+        largest emits all-weight-0 batches up to ``global_batches``."""
+        bs = self.batch_size
+        emitted, last = 0, None
+        for inputs, labels in ds.epoch_batches(epoch, shuffle, bs):
+            k = len(labels)
+            weights = np.zeros((bs,), np.float32)
+            weights[:k] = 1.0
+            if k < bs:
+                fill = np.resize(np.arange(k), bs - k)
+                inputs = tuple(np.concatenate([a, a[fill]], axis=0) for a in inputs)
+                labels = np.concatenate([labels, labels[fill]], axis=0)
+            emitted += 1
+            last = (inputs, labels.astype(np.int64))
+            yield inputs, last[1], weights
+        while emitted < ds.global_batches(bs):
+            if last is None:
+                last = (tuple(ds.example_inputs(bs)), np.zeros((bs,), np.int64))
+            emitted += 1
+            yield last[0], last[1], np.zeros((bs,), np.float32)
+
+    def batches(self, ds: Any, shuffle: bool, rng: np.random.Generator, epoch: int = 0):
+        """``host_batches`` (an ``ArrayDataset``) or ``stream_batches`` (a
+        ``StreamingDataset``) on the device: gathered (and pinned, for a
+        card) ``host_prefetch`` batches ahead, copied without blocking."""
         pin = self.device.type == "cuda"
+        source = (self.host_batches(ds, shuffle, rng) if isinstance(ds, ArrayDataset)
+                  else self.stream_batches(ds, epoch, shuffle))
 
         def host():
-            for inputs, labels, weights in self.host_batches(ds, shuffle, rng):
-                ts = [torch.from_numpy(a) for a in (*inputs, labels, weights)]
+            for inputs, labels, weights in source:
+                ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in (*inputs, labels, weights)]
                 yield [t.pin_memory() for t in ts] if pin else ts
 
         for ts in _host_prefetch_iter(host(), self.config.host_prefetch):
             ts = [t.to(self.device, non_blocking=True) for t in ts]
             yield tuple(ts[:-2]), ts[-2], ts[-1]
+
+    def _device_dataset(self, ds: ArrayDataset) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        """``ds`` on the device, placed once: a cache of three (the run's
+        train, val and test), held by identity (an ``id`` alone can be
+        reused once its dataset is gone); the oldest goes first, with its
+        graphs."""
+        entry = self._device_data.get(id(ds))
+        if entry is None or entry[0] is not ds:
+            self._drop_graphs(id(ds))
+            data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in ds.inputs)
+            labels = torch.from_numpy(ds.labels.astype(np.int64)).to(self.device)
+            entry = self._device_data[id(ds)] = (ds, (data, labels))
+            while len(self._device_data) > 3:
+                oldest = next(iter(self._device_data))
+                del self._device_data[oldest]
+                self._drop_graphs(oldest)
+        return entry[1]
+
+    def _drop_graphs(self, ds_id: int) -> None:
+        for key in [k for k in self._graphs if k[1] == ds_id]:
+            del self._graphs[key]
+
+    def _index_groups(self, n: int, shuffle: bool, rng: np.random.Generator):
+        """``_index_batches_host`` in groups of K = ``steps_per_dispatch``:
+        ``("group", (idxs (K, bs), weights (K, bs)))``, and a last group of
+        fewer than K as ``("tail", [(idx, weights), ...])``, which runs step
+        by step (padding it with weight-0 batches would still move Adam's
+        moments and the weight decay)."""
+        k = self.config.steps_per_dispatch
+        buf: list = []
+        for pair in self._index_batches_host(n, shuffle, rng):
+            buf.append(pair)
+            if len(buf) == k:
+                yield "group", (np.stack([b[0] for b in buf]), np.stack([b[1] for b in buf]))
+                buf = []
+        if buf:
+            yield "tail", buf
+
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        return [torch.from_numpy(a).to(self.device, non_blocking=True) for a in arrays]
+
+    def _run_group(self, kind: str, ds: ArrayDataset, step: Callable, idxs: np.ndarray,
+                   ws: np.ndarray) -> torch.Tensor:
+        """K steps of ``step`` on one group: eagerly on the CPU; on the card
+        through the dataset's graph, captured after running the first group
+        for real. Returns the group's (K, 4) stats."""
+        if self.device.type != "cuda":
+            return torch.stack([step(*self._to_device(i, w)) for i, w in zip(idxs, ws)])
+        key = (kind, id(ds))
+        graph = self._graphs.get(key)
+        if graph is None:
+            generator = self.dropout_generator if kind == "train" else None
+            steps_before = self.step
+            graph = _StepGroupGraph(step, idxs, ws, self.device, generator)
+            self.step = steps_before + (len(idxs) if kind == "train" else 0)  # capture ran no step
+            self._graphs[key] = graph
+            return graph.first
+        if kind == "train":
+            self.step += len(idxs)
+        return graph.replay(idxs, ws)
+
+    def _graphed(self, ds: Any) -> bool:
+        """Whether training on ``ds`` dispatches K steps at a time."""
+        cfg = self.config
+        return (isinstance(ds, ArrayDataset) and cfg.device_resident and cfg.steps_per_dispatch > 1
+                and self._lr_step_fn is None)
 
     # ------------------------------------------------------------ epochs
 
@@ -407,17 +684,64 @@ class Trainer:
         loss_sum, _correct, _n, wsum = self.train_step(inputs, labels, weights).tolist()
         return loss_sum / max(wsum, 1e-9)
 
-    def train_epoch(self, ds: ArrayDataset, rng: np.random.Generator) -> EpochMetrics:
+    def train_epoch(self, ds: Any, rng: np.random.Generator, epoch: int = 0) -> EpochMetrics:
+        """One epoch of ``ds``; stops between dispatches once a preemption
+        is requested."""
         acc = _Metrics(self.device)
-        for inputs, labels, weights in self.batches(ds, True, rng):
+        if isinstance(ds, ArrayDataset) and self.config.device_resident:
+            data, labels_all = self._device_dataset(ds)
+
+            def step(idx, weights):
+                return self.train_step_idx(data, labels_all, idx, weights)
+
+            if self._graphed(ds):
+                for kind, payload in self._index_groups(len(ds), True, rng):
+                    if self._preempted:
+                        break
+                    if kind == "group":
+                        acc.push(self._run_group("train", ds, step, *payload))
+                        continue
+                    for idx, weights in payload:
+                        if self._preempted:
+                            break
+                        acc.push(step(*self._to_device(idx, weights)))
+                return acc.result()
+            for idx, weights in self._index_batches_host(len(ds), True, rng):
+                if self._preempted:
+                    break
+                if self._lr_step_fn is not None:
+                    self._set_lr(self._lr_step_fn(self.step))
+                acc.push(step(*self._to_device(idx, weights)))
+            return acc.result()
+        for inputs, labels, weights in self.batches(ds, True, rng, epoch):
+            if self._preempted:
+                break
             if self._lr_step_fn is not None:
                 self._set_lr(self._lr_step_fn(self.step))
             acc.push(self.train_step(inputs, labels, weights))
         return acc.result()
 
-    def evaluate(self, ds: ArrayDataset) -> EpochMetrics:
+    def evaluate(self, ds: Any) -> EpochMetrics:
         acc = _Metrics(self.device)
-        for inputs, labels, weights in self.batches(ds, False, np.random.default_rng(0)):
+        rng = np.random.default_rng(0)
+        if isinstance(ds, ArrayDataset) and self.config.device_resident:
+            data, labels_all = self._device_dataset(ds)
+
+            def step(idx, weights):
+                return self.eval_step_idx(data, labels_all, idx, weights)
+
+            if self.config.steps_per_dispatch > 1:
+                for kind, payload in self._index_groups(len(ds), False, rng):
+                    if kind == "group":
+                        acc.push(self._run_group("eval", ds, step, *payload))
+                    else:
+                        for idx, weights in payload:
+                            acc.push(step(*self._to_device(idx, weights)))
+                return acc.result()
+            for idx, weights in self._index_batches_host(len(ds), False, rng):
+                acc.push(step(*self._to_device(idx, weights)))
+            return acc.result()
+        for inputs, labels, weights in self.batches(ds, False, rng):
             acc.push(self.eval_step(inputs, labels, weights))
         return acc.result()
 
@@ -427,33 +751,49 @@ class Trainer:
         os.makedirs(self.config.checkpoints_dir, exist_ok=True)
         return os.path.join(self.config.checkpoints_dir, f"{self.config.model_name}_{kind}.pt")
 
-    def checkpoint_tree(self, epoch: int, val_acc: float, best_val_acc: float) -> Dict[str, Any]:
+    def _scheduler_fields(self) -> Dict[str, Any]:
         s = self.scheduler
+        return {
+            "scheduler_lr": float(s.lr),
+            "scheduler_best": float(s.best if s.best is not None else 0.0),
+            "scheduler_has_best": s.best is not None,
+            "scheduler_bad_epochs": int(s.num_bad_epochs),
+        }
+
+    def checkpoint_tree(self, epoch: int, val_acc: float, best_val_acc: float) -> Dict[str, Any]:
         return {
             "epoch": epoch,
             "state": {**module_state(self.model), "opt_state": self.optimizer.state_dict(),
                       "step": self.step},
             "val_acc": float(val_acc),
-            "scheduler_lr": float(s.lr),
-            "scheduler_best": float(s.best if s.best is not None else 0.0),
-            "scheduler_has_best": s.best is not None,
-            "scheduler_bad_epochs": int(s.num_bad_epochs),
+            **self._scheduler_fields(),
             "best_val_acc": float(best_val_acc),
             "dropout_rng": self.dropout_generator.get_state(),
         }
 
+    def _host_snapshot(self) -> Dict[str, Any]:
+        """The trainer's state on the host: ``state`` as a checkpoint holds
+        it (parameters, statistics, Adam, step count) and the dropout
+        generator's state."""
+        return {"state": {**module_state(self.model), "opt_state": _to_cpu(self.optimizer.state_dict()),
+                          "step": self.step},
+                "dropout_rng": self.dropout_generator.get_state()}
+
     def restore_state(self, state: Dict[str, Any]) -> None:
         """Load ``{params, batch_stats, opt_state, step}`` into the model and
-        the optimizer."""
+        the optimizer (a state written with or without ``capturable``)."""
         self.ensure_initialized()
         load_module_state(self.model, state)
         self.optimizer.load_state_dict(state["opt_state"])
+        self._conform_optimizer()
         self.step = int(state["step"])
+        self._graphs.clear()  # they hold the replaced optimizer state
 
     @contextlib.contextmanager
     def _weights_of(self, state: Dict[str, Any]):
         """The model holds ``state``'s parameters and buffers inside the
-        block and its own again after it."""
+        block and its own again after it (copied in place, so graphs stay
+        valid)."""
         own = {k: v.clone() for k, v in self.model.state_dict().items()}
         load_module_state(self.model, state)
         try:
@@ -461,11 +801,39 @@ class Trainer:
         finally:
             self.model.load_state_dict(own)
 
+    # ------------------------------------------------------------ preemption
+
+    def request_preemption(self) -> None:
+        """Ask a running ``fit`` to stop: the step in flight finishes, the
+        checkpoint is written, and ``fit`` returns with ``preempted=True``.
+        Safe to call from a signal handler or another thread."""
+        self._preempted = True
+
+    def _install_preemption_handlers(self) -> Callable[[], None]:
+        """SIGTERM and SIGINT → ``request_preemption``; returns the undo.
+        Nothing is installed outside the main thread (signal's rule)."""
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+        previous = {sig: signal.signal(sig, lambda _signum, _frame: self.request_preemption())
+                    for sig in (signal.SIGTERM, signal.SIGINT)}
+
+        def restore():
+            for sig, old in previous.items():
+                signal.signal(sig, old)
+
+        return restore
+
     # ------------------------------------------------------------ fit
 
-    def _build_lr_schedule(self, train_ds: ArrayDataset) -> None:
+    def _build_lr_schedule(self, train_ds: Any) -> None:
         cfg = self.config
-        steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
+        if isinstance(train_ds, ArrayDataset):
+            steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
+        else:
+            steps_per_epoch = max(1, int(train_ds.global_batches(self.batch_size)))
         if cfg.lr_schedule == "linear_warmup":
             # per step, after the step count: the first step trains at lr 0
             total = steps_per_epoch * cfg.epochs
@@ -491,18 +859,60 @@ class Trainer:
 
     def fit(
         self,
-        train_ds: ArrayDataset,
-        val_ds: ArrayDataset,
-        test_ds: Optional[ArrayDataset] = None,
+        train_ds: Any,
+        val_ds: Any,
+        test_ds: Optional[Any] = None,
         resume: bool = False,
         progress: Optional[Callable[[str], None]] = print,
     ) -> Dict[str, Any]:
-        """Full training run; returns the history and the final
-        (best-checkpoint) test metrics."""
+        """Full training run on ``ArrayDataset``s or ``StreamingDataset``s;
+        returns the history and the final (best-checkpoint) test metrics,
+        or ``preempted=True`` when a preemption stopped it."""
         cfg = self.config
         self.ensure_initialized()
         self._build_lr_schedule(train_ds)
+        if cfg.steps_per_dispatch > 1 and not (cfg.device_resident and isinstance(train_ds, ArrayDataset)):
+            warnings.warn(
+                "training.steps_per_dispatch > 1 has no effect here: the grouped dispatch path needs a "
+                "device_resident ArrayDataset — training falls back to per-step dispatch",
+                stacklevel=2,
+            )
+        if self._lr_step_fn is not None and cfg.steps_per_dispatch > 1:
+            warnings.warn(
+                "training.steps_per_dispatch > 1 is ignored with a per-step LR schedule (linear_warmup / "
+                "warmup_epochs): the LR cannot change inside a grouped dispatch — training falls back to "
+                "per-step dispatch",
+                stacklevel=2,
+            )
+        if cfg.remat and self.device.type == "cuda" and self._graphed(train_ds):
+            raise NotImplementedError(
+                "training.remat with steps_per_dispatch > 1 on the card: the recompute sets the dropout "
+                "generator's state from the host, which a CUDA graph cannot capture (ROADMAP.md, Queue 3 #15)"
+            )
+        self._preempted = False
+        restore_signals = self._install_preemption_handlers() if cfg.handle_preemption else (lambda: None)
+        try:
+            return self._fit_loop(train_ds, val_ds, test_ds, resume, progress)
+        finally:
+            restore_signals()
+
+    def _train_epoch_traced(self, train_ds: Any, rng: np.random.Generator, epoch: int) -> EpochMetrics:
+        """``train_epoch`` under ``torch.profiler`` (CPU, and CUDA on a card),
+        its Chrome trace written into ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        with profile(activities=activities) as prof:
+            metrics = self.train_epoch(train_ds, rng, epoch)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.config.profile_dir,
+                                              f"{self.config.model_name}_epoch{epoch}.trace.json"))
+        return metrics
+
+    def _fit_loop(self, train_ds, val_ds, test_ds, resume, progress) -> Dict[str, Any]:
+        cfg = self.config
         self.dropout_generator.manual_seed(cfg.seed + 1)
+        self._graphs.clear()  # captured against another run's generator state
         start_epoch = 1
         best_val_acc = -1.0
         rolling_path = self._ckpt_path("checkpoint")
@@ -524,13 +934,34 @@ class Trainer:
                 progress(f"Resumed from {rolling_path} at epoch {start_epoch}")
 
         data_rng = np.random.default_rng(cfg.seed)
-        # each completed epoch drew one permutation: skip them on resume
-        for _ in range(start_epoch - 1):
-            data_rng.permutation(len(train_ds))
+        # each completed epoch drew one permutation: skip them on resume (a
+        # streaming dataset seeds its own epochs)
+        if isinstance(train_ds, ArrayDataset):
+            for _ in range(start_epoch - 1):
+                data_rng.permutation(len(train_ds))
         history: List[Dict[str, float]] = []
         for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.time()
-            tr = self.train_epoch(train_ds, data_rng)
+            # the epoch's start on the host: a preemption saves it, labelled
+            # epoch - 1, and --resume replays this epoch from it exactly
+            boundary = self._host_snapshot() if cfg.handle_preemption else None
+            if cfg.profile_dir is not None and epoch == start_epoch:
+                tr = self._train_epoch_traced(train_ds, data_rng, epoch)
+            else:
+                tr = self.train_epoch(train_ds, data_rng, epoch)
+            if self._preempted:
+                # without handle_preemption there is no snapshot: the current
+                # state is saved (a valid checkpoint, an approximate replay)
+                snap = boundary if boundary is not None else self._host_snapshot()
+                save_checkpoint(rolling_path, {
+                    "epoch": epoch - 1, "state": snap["state"], "val_acc": float(best_val_acc),
+                    **self._scheduler_fields(), "best_val_acc": float(best_val_acc),
+                    "dropout_rng": snap["dropout_rng"],
+                })
+                if progress:
+                    progress(f"Preempted during epoch {epoch}; checkpoint saved to {rolling_path} "
+                             f"(resume replays epoch {epoch})")
+                return {"history": history, "best_val_acc": best_val_acc, "preempted": True}
             va = self.evaluate(val_ds)
             if cfg.lr_schedule == "plateau":
                 metric = va.loss if cfg.scheduler_mode == "min" else va.acc

@@ -144,8 +144,9 @@ def test_main_fit_learns_and_its_checkpoint_serves(tmp_path):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path):
-    for key, value, item in (("dataset.streaming", True, "#11"),):
+    for key, value, item in (("dataset.loader_backend", "native", "#11"),):
         cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
+        cfg.set("dataset.streaming", True)
         cfg.set(key, value)
         with pytest.raises(NotImplementedError, match=item):
             paudio_pipeline.main(cfg, device="cpu")

@@ -9,7 +9,11 @@ on padded ids and an audio_cues train step against the CPU, int32 ids
 through the ``Predictor``), and the frozen encoders of the audio_cues_video
 models (frozen parameters bit-equal over card steps, ``frozen_bn_eval``
 through ``model.train()``) and that pipeline's featurization through the
-log-mel kernel.
+log-mel kernel; the lip-crop kernel against its plain version bit for bit,
+device-crop train steps against plain-crop ones, CUDA-graphed train steps
+against eager ones (dropout on), capturable optimizer checkpoints resuming
+exactly and loading into a host-batching trainer and back, and ``remat``
+refused under graphs.
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -514,3 +518,143 @@ def test_audio_cues_video_corpus_features_from_the_kernel(cuda_device, tmp_path)
     mels, cues, lips = datasets["val"].inputs
     assert mels.shape == (12, 80, 117) and cues.shape == (12, 768) and lips.dtype == np.uint8 and len(classes) == 4
     np.testing.assert_allclose(mels, want, rtol=0, atol=TOL)
+
+
+# --- the crop kernel, the device crop and CUDA graphs -------------------------
+
+
+def _frames_and_boxes(n, device, seed=0, h=256, w=256):
+    """uint8 frames and margin-expanded boxes, a failed detection first."""
+    from multimodal_lipread_torch.ops.crop_resize import expand_boxes
+
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)).to(device)
+    x0, y0 = rng.integers(0, w - 40, n), rng.integers(0, h - 40, n)
+    raw = np.stack([x0, y0, np.minimum(x0 + rng.integers(12, 110, n), w),
+                    np.minimum(y0 + rng.integers(8, 70, n), h)], -1).astype(np.int32)
+    boxes = expand_boxes(torch.from_numpy(raw), h, w)
+    boxes[0] = 0
+    return frames, boxes.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 29, 464])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_crop_kernel_matches_plain_version(cuda_device, frames, normalize):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.ops.crop_resize import (
+        crop_resize_pad_normalize_reference,
+        crop_resize_pad_reference,
+    )
+
+    x, boxes = _frames_and_boxes(frames, cuda_device, seed=frames)
+    kernel = crop_resize_cuda.crop_resize_pad_normalize if normalize else crop_resize_cuda.crop_resize_pad
+    plain = crop_resize_pad_normalize_reference if normalize else crop_resize_pad_reference
+    before = crop_resize_cuda.launch_count
+    got = kernel(x, boxes)
+    torch.cuda.synchronize()
+    assert crop_resize_cuda.launch_count == before + 1
+    assert got.shape == (frames, 44, 44, 3) and (got[0] == 0).all()
+    torch.testing.assert_close(got, plain(x, boxes), rtol=0, atol=0)  # bit for bit
+
+
+@pytest.mark.cuda
+def test_crop_kernel_keeps_leading_axes_and_refuses_what_it_does_not_take(cuda_device):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+
+    x, boxes = _frames_and_boxes(12, cuda_device, seed=3, h=72, w=96)
+    video = crop_resize_cuda.crop_resize_pad(x.reshape(3, 4, 72, 96, 3), boxes.reshape(3, 4, 4))
+    torch.testing.assert_close(video.reshape(12, 44, 44, 3), crop_resize_cuda.crop_resize_pad(x, boxes))
+    with pytest.raises(TypeError, match="int32"):
+        crop_resize_cuda.crop_resize_pad(x, boxes.long())
+    with pytest.raises(ValueError, match="one device"):
+        crop_resize_cuda.crop_resize_pad(x, boxes.cpu())
+
+
+def _mlp_trainer(tmp_path, tag, device, **cfg):
+    from multimodal_lipread_torch.nn.common import MLP
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = {"epochs": 2, "test_every_epoch": False, **cfg}
+    return Trainer(MLP(12, (32, 32), 4, dropout_rate=0.3, use_batchnorm=True), TrainerConfig(
+        model_name="m", num_classes=4, batch_size=8, learning_rate=1e-2, seed=3, host_prefetch=0,
+        metrics_dir=str(tmp_path / tag / "m"), checkpoints_dir=str(tmp_path / tag / "c"), **cfg), device=device)
+
+
+def _mlp_data(n, seed):
+    from multimodal_lipread_torch.train.trainer import ArrayDataset
+
+    rng = np.random.default_rng(seed)
+    return ArrayDataset((rng.standard_normal((n, 12)).astype(np.float32),), rng.integers(0, 4, n))
+
+
+@pytest.mark.cuda
+def test_graphed_steps_equal_eager_steps_with_dropout_on(cuda_device, tmp_path):
+    train, val = _mlp_data(44, 0), _mlp_data(40, 1)  # 6 and 5 batches: a group of 4 and a tail
+    runs = {}
+    for k in (1, 4):
+        t = _mlp_trainer(tmp_path, f"k{k}", cuda_device, device_resident=True, steps_per_dispatch=k)
+        runs[k] = (t.fit(train, val, progress=None), t)
+    assert sorted(kind for kind, _ in runs[4][1]._graphs) == ["eval", "train"]
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    assert [[h[k] for k in keys] for h in runs[1][0]["history"]] == [[h[k] for k in keys]
+                                                                       for h in runs[4][0]["history"]]
+    a, b = runs[1][1].model.state_dict(), runs[4][1].model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert runs[1][1].step == runs[4][1].step == 12
+    assert runs[1][1].dropout_generator.get_state().equal(runs[4][1].dropout_generator.get_state())
+
+
+@pytest.mark.cuda
+def test_capturable_checkpoints_resume_exactly_and_load_either_way(cuda_device, tmp_path):
+    train, val = _mlp_data(40, 0), _mlp_data(16, 1)
+    resident = {"device_resident": True, "steps_per_dispatch": 2, "rolling_checkpoint": True}
+    whole_t = _mlp_trainer(tmp_path, "whole", cuda_device, **resident)
+    whole = whole_t.fit(train, val, progress=None)
+    _mlp_trainer(tmp_path, "cut", cuda_device, **{**resident, "epochs": 1}).fit(train, val, progress=None)
+    resumed_t = _mlp_trainer(tmp_path, "cut", cuda_device, **resident)
+    resumed = resumed_t.fit(train, val, resume=True, progress=None)
+    assert resumed["history"][0]["train_loss"] == whole["history"][1]["train_loss"]
+    a, b = whole_t.model.state_dict(), resumed_t.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a) and resumed_t.step == whole_t.step == 10
+    # a capturable state into a host-batching trainer, and back
+    host = _mlp_trainer(tmp_path, "cut", cuda_device, epochs=3, rolling_checkpoint=True)
+    host.fit(train, val, resume=True, progress=None)
+    assert all(isinstance(g["lr"], float) and not g["capturable"] for g in host.optimizer.param_groups)
+    assert all(s["step"].device.type == "cpu" for s in host.optimizer.state.values())
+    again = _mlp_trainer(tmp_path, "cut", cuda_device, **{**resident, "epochs": 4})
+    again.fit(train, val, resume=True, progress=None)
+    assert all(isinstance(g["lr"], torch.Tensor) and g["lr"].is_cuda and g["capturable"]
+               for g in again.optimizer.param_groups)
+    assert all(s["step"].is_cuda for s in again.optimizer.state.values()) and again.step == 20
+
+
+@pytest.mark.cuda
+def test_remat_is_refused_under_graphs(cuda_device, tmp_path):
+    t = _mlp_trainer(tmp_path, "remat", cuda_device, remat=True, device_resident=True, steps_per_dispatch=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.fit(_mlp_data(16, 0), _mlp_data(8, 1), progress=None)
+
+
+@pytest.mark.cuda
+def test_device_crop_train_steps_equal_plain_crop_steps(cuda_device, tmp_path):
+    from multimodal_lipread_torch.ops.crop_resize import crop_resize_pad_reference
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    x, boxes = _frames_and_boxes(4 * 29, cuda_device, seed=5, h=96, w=96)
+    frames, boxes = x.reshape(4, 29, 96, 96, 3), boxes.reshape(4, 29, 4)
+    lips = crop_resize_pad_reference(frames, boxes)
+    labels, weights = torch.tensor([0, 1, 2, 3], device=cuda_device), torch.ones(4, device=cuda_device)
+    losses = []
+    torch.backends.cudnn.deterministic = True  # cuDNN's default weight gradients sum in a run-dependent order
+    try:
+        for inputs, extra in (((frames, boxes), {"device_preproc": device_crop}), ((lips,), {})):
+            t = Trainer(get_video_model("cnn", 4), TrainerConfig(
+                model_name="c", num_classes=4, batch_size=4, seed=0, metrics_dir=str(tmp_path / "m"),
+                checkpoints_dir=str(tmp_path / "c"), **extra), device=cuda_device)
+            t.init_state()
+            losses.append([t.train_step(inputs, labels, weights)[0].item() for _ in range(3)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert losses[0] == losses[1]

@@ -69,3 +69,10 @@ def test_plotting_is_imported_only_inside_functions():
     # the card machine has no matplotlib: training must import without it
     for path in _port_files():
         assert not {"matplotlib", "pandas"} & {n.split(".")[0] for n in _imports(path, top_level_only=True)}, path
+
+
+def test_opencv_is_imported_only_inside_functions():
+    # the lip extraction and the .mp4 writer need cv2; nothing else may
+    # depend on it being installed
+    for path in _port_files():
+        assert "cv2" not in {n.split(".")[0] for n in _imports(path, top_level_only=True)}, path

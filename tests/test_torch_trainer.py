@@ -309,10 +309,7 @@ def test_train_single_batch_and_bf16_keep_float32_parameters(tmp_path):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_KNOBS))
 def test_unported_knob_raises(tmp_path, name):
-    on = {"profile_dir": "/tmp/trace", "mixup_alpha": 0.2, "remat": True, "device_resident": True,
-          "steps_per_dispatch": 4, "handle_preemption": True,
-          "param_partition_rules": ((".*", ("model",)),), "device_preproc": lambda x: (x,),
-          "checkpoint_backend": "orbax"}
+    on = {"param_partition_rules": ((".*", ("model",)),), "checkpoint_backend": "orbax"}
     cfg = TrainerConfig(model_name="m", num_classes=NUM_CLASSES, metrics_dir=str(tmp_path / "m"),
                         checkpoints_dir=str(tmp_path / "c"), **{name: on[name]})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

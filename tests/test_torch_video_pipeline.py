@@ -258,12 +258,10 @@ def test_main_resumes_exactly_with_lstm_dropout(lip_corpus, tmp_path):
     assert nodrop["history"][0]["train_loss"] != whole["history"][0]["train_loss"]
 
 
-@pytest.mark.parametrize("key, value, item", [
-    ("dataset.streaming", True, "#11"), ("dataset.device_crop", True, "#8.5"),
-    ("dataset.host_crop_streaming", True, "#11"),
-])
+@pytest.mark.parametrize("key, value, item", [("dataset.loader_backend", "native", "#11")])
 def test_main_refuses_what_is_not_ported(tmp_path, key, value, item):
     cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
+    cfg.set("dataset.streaming", True)
     cfg.set(key, value)
     with pytest.raises(NotImplementedError, match=item):
         pvideo_pipeline.main(cfg, device="cpu")
