@@ -219,10 +219,38 @@ a non-zero exit:
    per-step losses over 2 epochs with one forced ReduceLROnPlateau halving,
    with dropout off and on, bit-equal expected and held to 1e-6 under
    ``cudnn.deterministic``; then, before and after, device activities and
-   host launch calls per step, step time, clips/s and the idle share.
+   host launch calls per step, step time, clips/s and the idle share;
+25. native-stream (after 23): ``dataset.loader_backend: native`` (the C++
+   prefetcher of ``native/mlt_io.cpp``): [stream-train]'s corpus with
+   ``wire_dtype: int16`` through ``pipelines.audio.main`` against the grain
+   backend, 1 epoch each under ``cudnn.deterministic``, the per-step losses
+   equal to 1e-6 (bit-equal expected) and the log-mel kernel in every step;
+   host batch ms of the native loader and of the ``DataLoader`` with 0 and
+   4 workers, and the card's idle share over a training epoch of the first
+   two (4 workers are spawned anew every epoch: their first batch's wait);
+   then [video-train]'s lips as native ``npy_u8`` records, byte-equal to
+   ``LipClipSource``'s over a shuffled epoch, their host batch ms, and 1
+   epoch of ``pipelines.video.main`` on them;
+26. load-test: ``serving.load_test`` with 4 client threads on one card:
+   [stream-train]'s checkpoint in a resident ``Predictor`` (32 waveforms a
+   request, 25 requests a thread, the log-mel kernel in each), and
+   [video-train]'s resnet_trans behind ``Predictor(device_preproc=
+   device_crop)`` (16 full-frame clips of 29 x 256 x 256 x 3 a request, 10
+   a thread, the crop kernel in each): p50, p90, p99, max and clips/s;
+27. export: ``serving.export_pipeline`` on [stream-train]'s checkpoint
+   (``torch.export`` over raw waveforms), loaded again and run on the card:
+   the graph holds ``mlt.log_mel``, the run launches the kernel, and the
+   logits equal the resident ``Predictor``'s to 1e-6;
+28. serve-cold (after 18): one ``predict_clips`` call of 16 clips for
+   cv, acv and bert-base from the run's checkpoints against the parent
+   commit's way of making it and a resident request, in turns, with equal
+   logits; the call's stages with the state copied from pinned and from
+   pageable memory, in turns; and a request's 16 lip ``.npy`` files through
+   ``np.load`` and through ``serving.load_lips``.
 
 Every phase prints its wall time. The video and cue phases, [cv-*] and
-[zoo] launch no hand-written kernel. The line
+[zoo] launch no hand-written kernel. The request breakdowns load lips
+through ``serving.load_lips``. The line
 before the last is ``{"kernels": [...]}``, one entry per kernel, with the
 paths that launch it (the crop kernel's ``max_abs_err`` in uint8 LSB); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -232,6 +260,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -382,6 +411,14 @@ STREAM_RTOL = 1e-4
 GRAPH_K, GRAPH_BATCHES, GRAPH_RTOL = 4, 10, 1e-6
 # [mp4]: the video pipeline on rendered .mp4 clips (4 words x 8 per split)
 MP4_CLIPS_PER_SPLIT, MP4_TIMED_CLIPS = 8, 8
+# [native-stream]: the native backend's per-step losses against grain's on
+# the same clips in the same order (the int16 wire is exact for PCM16, so
+# bit-equal is expected under cudnn.deterministic); DataLoader worker counts
+NATIVE_RTOL, NATIVE_LOADER_WORKERS = 1e-6, (0, 4)
+# [load-test]: client threads on one card and requests per thread
+LOAD_THREADS, LOAD_AUDIO_REQUESTS, LOAD_CROP_REQUESTS = 4, 25, 10
+# [export] / [serve-cold]: the same weights through another path
+EXPORT_TOL = 1e-6
 
 
 def log(phase: str, msg: str) -> None:
@@ -1223,6 +1260,7 @@ def video_request_breakdown(net: torch.nn.Module, paths: list) -> dict:
     to the card, the forward (scaling to [0, 1] included) and the copy of
     the logits back; ``device idle`` is the share of the wall time outside
     those."""
+    from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.utils.precision import model_precision
 
     names = ("npy load", "uint8 H2D", "forward", "D2H")
@@ -1231,7 +1269,7 @@ def video_request_breakdown(net: torch.nn.Module, paths: list) -> dict:
     with torch.inference_mode(), model_precision(torch.float32):
         for _ in range(BREAKDOWN_ITERS):
             t0 = time.perf_counter()
-            lips = np.stack([np.load(p) for p in paths])
+            lips = serving.load_lips(paths)
             t_load = time.perf_counter() - t0
             ev[0].record()
             x = torch.from_numpy(lips).to(DEVICE)
@@ -1356,8 +1394,9 @@ def av_request_breakdown(net: torch.nn.Module, group: list) -> dict:
     the copies to the card (waves and uint8 lips), the log-mel kernel, the
     forward (the lips scaled to [0, 1] included) and the copy of the logits
     back; ``device idle`` is the share of the wall time outside those."""
+    from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.ops import logmel_cuda
-    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
     from multimodal_lipread_torch.utils.precision import model_precision
 
     names = ("WAV decode", "npy load", "H2D", "log-mel", "forward", "D2H")
@@ -1368,7 +1407,7 @@ def av_request_breakdown(net: torch.nn.Module, group: list) -> dict:
             t0 = time.perf_counter()
             waves = decode_waveforms([g[0] for g in group])
             t1 = time.perf_counter()
-            lips = load_lip_sequences([g[1] for g in group])
+            lips = serving.load_lips([g[1] for g in group])
             t2 = time.perf_counter()
             ev[0].record()
             wave, x = torch.from_numpy(waves).to(DEVICE), torch.from_numpy(lips).to(DEVICE)
@@ -1879,9 +1918,10 @@ def fusion_request_breakdown(net: torch.nn.Module, group: list, audio: bool) -> 
     uint8 lips), the forward (lips scaled to [0, 1] included) and the copy
     of the logits back; ``device idle`` is the share of the wall time
     outside the card's stages."""
+    from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.data.cues import EMBED_DIMS, HashingEmbedder
     from multimodal_lipread_torch.ops import logmel_cuda
-    from multimodal_lipread_torch.pipelines.common import decode_waveforms, load_lip_sequences
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
     from multimodal_lipread_torch.utils.precision import model_precision
 
     totals: dict = {}
@@ -1902,7 +1942,7 @@ def fusion_request_breakdown(net: torch.nn.Module, group: list, audio: bool) -> 
             t1 = time.perf_counter()
             emb = embedder.encode(read_texts([g[-2] for g in group]))
             t2 = time.perf_counter()
-            lips = load_lip_sequences([g[-1] for g in group])
+            lips = serving.load_lips([g[-1] for g in group])
             t3 = time.perf_counter()
             ev[3].record()
             cue, x = torch.from_numpy(emb).to(DEVICE), torch.from_numpy(lips).to(DEVICE)
@@ -2577,13 +2617,26 @@ def phase_crop_train(seed: int, device_info: dict, tmp: str) -> dict:
     return {"launches": launches + serve_launches}
 
 
-def phase_stream_train(seed: int, device_info: dict) -> int:
+def stream_config(root: str, base: str, seed: int) -> "Config":
+    """audio_config.yaml's vgg_lstm on ``root``, streamed, 1 epoch."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117, "streaming": True},
+        "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": 1, "learning_rate": TRAIN_LR,
+                     "weight_decay": TRAIN_WD, "seed": seed},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def phase_stream_train(seed: int, device_info: dict, tmp: str) -> dict:
     """``pipelines.audio.main`` with ``dataset.streaming: true`` on [train]'s
     WAV corpus, 1 epoch: the log-mel kernel runs in every step's forward;
     one step on the first unshuffled streaming batch against the
     features-first model's at the same weights. Returns the log-mel
-    kernel's launches."""
-    from multimodal_lipread_torch.config import Config
+    kernel's launches, the corpus, the config and the best checkpoint
+    (``WaveToLogMel``: [native-stream], [load-test], [export])."""
     from multimodal_lipread_torch.data.glips import scan_glips
     from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
     from multimodal_lipread_torch.models.audio import get_audio_model
@@ -2594,55 +2647,46 @@ def phase_stream_train(seed: int, device_info: dict) -> int:
     from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
 
     smi = device_info["smi"]
-    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_stream_")
-    try:
-        root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=TRAIN_CLIPS_PER_SPLIT,
-                                    seed=seed)
-        cfg = Config.from_dict({
-            "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117, "streaming": True},
-            "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
-            "training": {"batch_size": TRAIN_BATCH, "epochs": 1, "learning_rate": TRAIN_LR,
-                         "weight_decay": TRAIN_WD, "seed": seed},
-            "output": {"base_dir": os.path.join(tmp, "run"), "plots": False},
-        })
-        logmel_cuda.launch_count = 0
-        t0 = time.perf_counter()
-        result = audio_pipeline.main(cfg, device=DEVICE)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = logmel_cuda.launch_count
-        steps = -(-TRAIN_CLIPS_PER_SPLIT * len(WORDS) // TRAIN_BATCH)
-        h = result["history"][0]
-        log("stream-train", f"pipelines.audio.main with dataset.streaming: vgg_lstm VGG{VGG_VERSION}-BN, batch "
-                            f"{TRAIN_BATCH}, 1 epoch in {wall:.2f} s (WAV decode per batch on the host, the log-mel "
-                            f"kernel in every forward): train {h['train_loss']:.4f} val {h['val_loss']:.4f} test "
-                            f"{h['test_loss']:.4f}, {h['clips_per_sec']:.1f} clips/s (train + val + test); log-mel "
-                            f"kernel launches {launches} for {steps} train steps | {smi}")
-        if launches < steps or not np.isfinite([h["train_loss"], h["val_loss"], h["test_loss"]]).all():
-            raise SystemExit(f"[stream-train] {launches} log-mel launches for {steps} train steps, or a "
-                             "non-finite loss")
-        index = scan_glips(root)
-        train = index.by_split("train")[:TRAIN_BATCH]
-        labels = np.asarray([index.class_to_idx[e.word] for e in train])
-        waves = decode_waveforms([e.path for e in train])
-        mels = load_audio_datasets(root, device=DEVICE)[0]["train"].inputs[0][:TRAIN_BATCH]
-        losses = []
-        for model, x in ((WaveToLogMel(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION)), waves),
-                         (get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION), mels)):
-            t = Trainer(model, TrainerConfig(model_name="s", num_classes=len(WORDS), batch_size=TRAIN_BATCH, seed=seed,
-                                             learning_rate=TRAIN_LR, metrics_dir=os.path.join(tmp, "m"),
-                                             checkpoints_dir=os.path.join(tmp, "c")), device=DEVICE)
-            losses.append(t.train_single_batch(ArrayDataset((x,), labels)))
-        rel = abs(losses[0] / losses[1] - 1.0)
-        ok = rel <= STREAM_RTOL
-        log("stream-train", f"one step on the first unshuffled batch: waveforms through WaveToLogMel {losses[0]:.7f} "
-                            f"vs features first {losses[1]:.7f}, relative {rel:.3e} (tolerance {STREAM_RTOL:g}) "
-                            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("[stream-train] the streaming model's loss differs from the features-first model's")
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = os.path.join(tmp, "stream")
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=TRAIN_CLIPS_PER_SPLIT,
+                                seed=seed)
+    cfg = stream_config(root, os.path.join(tmp, "run"), seed)
+    logmel_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    result = audio_pipeline.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = logmel_cuda.launch_count
+    steps = -(-TRAIN_CLIPS_PER_SPLIT * len(WORDS) // TRAIN_BATCH)
+    h = result["history"][0]
+    log("stream-train", f"pipelines.audio.main with dataset.streaming: vgg_lstm VGG{VGG_VERSION}-BN, batch "
+                        f"{TRAIN_BATCH}, 1 epoch in {wall:.2f} s (WAV decode per batch on the host, the log-mel "
+                        f"kernel in every forward): train {h['train_loss']:.4f} val {h['val_loss']:.4f} test "
+                        f"{h['test_loss']:.4f}, {h['clips_per_sec']:.1f} clips/s (train + val + test); log-mel "
+                        f"kernel launches {launches} for {steps} train steps | {smi}")
+    if launches < steps or not np.isfinite([h["train_loss"], h["val_loss"], h["test_loss"]]).all():
+        raise SystemExit(f"[stream-train] {launches} log-mel launches for {steps} train steps, or a "
+                         "non-finite loss")
+    index = scan_glips(root)
+    train = index.by_split("train")[:TRAIN_BATCH]
+    labels = np.asarray([index.class_to_idx[e.word] for e in train])
+    waves = decode_waveforms([e.path for e in train])
+    mels = load_audio_datasets(root, device=DEVICE)[0]["train"].inputs[0][:TRAIN_BATCH]
+    losses = []
+    for model, x in ((WaveToLogMel(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION)), waves),
+                     (get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION), mels)):
+        t = Trainer(model, TrainerConfig(model_name="s", num_classes=len(WORDS), batch_size=TRAIN_BATCH, seed=seed,
+                                         learning_rate=TRAIN_LR, metrics_dir=os.path.join(tmp, "m"),
+                                         checkpoints_dir=os.path.join(tmp, "c")), device=DEVICE)
+        losses.append(t.train_single_batch(ArrayDataset((x,), labels)))
+    rel = abs(losses[0] / losses[1] - 1.0)
+    ok = rel <= STREAM_RTOL
+    log("stream-train", f"one step on the first unshuffled batch: waveforms through WaveToLogMel {losses[0]:.7f} "
+                        f"vs features first {losses[1]:.7f}, relative {rel:.3e} (tolerance {STREAM_RTOL:g}) "
+                        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[stream-train] the streaming model's loss differs from the features-first model's")
+    return {"launches": launches, "root": root, "cfg": cfg, "best": result["best_checkpoint"], "tmp": tmp}
 
 
 def phase_mp4(seed: int, device_info: dict, tmp: str) -> int:
@@ -2692,6 +2736,360 @@ def phase_mp4(seed: int, device_info: dict, tmp: str) -> int:
             raise SystemExit(f"[mp4] {knob}: the crop kernel launched {crop_resize_cuda.launch_count} times")
         launches += crop_resize_cuda.launch_count
     return launches
+
+
+def host_batch_ms(ds, batch: int, epoch: int = 0) -> tuple:
+    """(ms to the first batch, mean ms of each later one) of a shuffled
+    epoch of ``ds`` assembled on the host (no copy to the card)."""
+    times, t0 = [], time.perf_counter()
+    for _ in ds.epoch_batches(epoch, True, batch):
+        t1 = time.perf_counter()
+        times.append(t1 - t0)
+        t0 = t1
+    return times[0] * 1e3, float(np.mean(times[1:])) * 1e3
+
+
+def epoch_idle(trainer, ds) -> tuple:
+    """(unprofiled epoch s, busy s, profiled s) of training epochs of ``ds``."""
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_epoch(ds, rng, 1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    busy_s, prof_s, _ = device_busy_s(lambda: trainer.train_epoch(ds, rng, 2))
+    return epoch_s, busy_s, prof_s
+
+
+def phase_native_stream(seed: int, device_info: dict, stream: dict, video: dict) -> int:
+    """The C++ prefetcher (``dataset.loader_backend: native``): [stream-train]'s
+    WAV corpus with the int16 wire through ``pipelines.audio.main`` against
+    the grain (``DataLoader``) backend, per-step losses over the same epoch
+    order under ``cudnn.deterministic``; host batch ms (native, ``DataLoader``
+    with 0 and 4 workers) and the card's idle share over a training epoch of
+    each; then [video-train]'s lips as ``npy_u8`` records against
+    ``LipClipSource``, byte for byte, and 1 epoch of ``pipelines.video.main``
+    on them. Returns the log-mel kernel's launches."""
+    from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips, scan_lip_regions
+    from multimodal_lipread_torch.data.grain_loader import (
+        AudioClipSource,
+        LipClipSource,
+        NativeStreamingDataset,
+        StreamingDataset,
+    )
+    from multimodal_lipread_torch.models.audio import get_audio_model
+    from multimodal_lipread_torch.models.frontend import WaveToLogMel
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+    from multimodal_lipread_torch.pipelines import video as video_pipeline
+    from multimodal_lipread_torch.pipelines.common import LIP_SHAPE
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    smi, tmp = device_info["smi"], stream["tmp"]
+    losses, launches = {}, 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for backend in ("grain", "native"):
+            cfg = stream_config(stream["root"], os.path.join(tmp, f"native_{backend}"), seed)
+            cfg.set("dataset.loader_backend", backend)
+            if backend == "native":
+                cfg.set("dataset.wire_dtype", "int16")
+            logmel_cuda.launch_count = 0
+            t0 = time.perf_counter()
+            with recorded_losses() as recorded:
+                h = audio_pipeline.main(cfg, device=DEVICE)["history"][0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses[backend] = flat_losses(recorded)
+            if backend == "native":
+                launches = logmel_cuda.launch_count
+            log("native-stream", f"pipelines.audio.main, dataset.loader_backend {backend}"
+                                 f"{' (wire_dtype int16)' if backend == 'native' else ''}: vgg_lstm, batch {TRAIN_BATCH}, "
+                                 f"1 epoch in {wall:.2f} s, train {h['train_loss']:.6f} val {h['val_loss']:.6f} test "
+                                 f"{h['test_loss']:.6f}, {h['clips_per_sec']:.1f} clips/s (train + val + test); "
+                                 f"log-mel kernel launches {logmel_cuda.launch_count} | {smi}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = losses["native"], losses["grain"]
+    rel = float(np.max(np.abs(a / b - 1.0))) if a.shape == b.shape and len(a) else float("nan")
+    ok = rel <= NATIVE_RTOL and launches >= len(a) > 0
+    log("native-stream", f"per-step losses (train and evaluation, {len(a)} steps), native int16 wire vs grain: "
+                         f"largest relative difference {rel:.3e} (tolerance {NATIVE_RTOL:g}; bit-equal expected) "
+                         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[native-stream] the native backend's losses differ from the grain backend's, or the "
+                         "log-mel kernel did not run every step")
+
+    index = scan_glips(stream["root"], exts=AUDIO_EXTS)
+    entries, c2i = index.by_split("train"), index.class_to_idx
+    loaders = {"native (int16 wire)": NativeStreamingDataset(entries, c2i, "wav", (20000,), seed=seed,
+                                                             wire_dtype="int16")}
+    for workers in NATIVE_LOADER_WORKERS:
+        loaders[f"DataLoader num_workers {workers}"] = StreamingDataset(AudioClipSource(entries, c2i), ("waveform",),
+                                                                        seed=seed, worker_count=workers)
+    for name, ds in loaders.items():
+        first, later = host_batch_ms(ds, TRAIN_BATCH)
+        if isinstance(ds, StreamingDataset) and ds.worker_count > 0:
+            # the DataLoader spawns its workers anew every epoch: the first
+            # batch's wait is the epoch's floor (8.6 s an epoch and the card
+            # 98 % idle on an H100 at 700 W, PERF.md), so no training epoch here
+            log("native-stream", f"{name}: host batch of {TRAIN_BATCH} WAV clips {later:.3f} ms (mean after the "
+                                 f"first); the first batch, spawning the workers, {first:.2f} ms every epoch | host "
+                                 f"CPU ({os.cpu_count()} cores)")
+            continue
+        model = WaveToLogMel(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION))
+        trainer = Trainer(model, TrainerConfig(model_name="n", num_classes=len(WORDS), batch_size=TRAIN_BATCH,
+                                               seed=seed, metrics_dir=os.path.join(tmp, "m"),
+                                               checkpoints_dir=os.path.join(tmp, "c")), device=DEVICE)
+        trainer.ensure_initialized()
+        epoch_s, busy_s, prof_s = epoch_idle(trainer, ds)
+        log("native-stream", f"{name}: host batch of {TRAIN_BATCH} WAV clips {later:.3f} ms (mean after the first; "
+                             f"first {first:.2f} ms) | training epoch of {len(entries)} clips {epoch_s * 1e3:.2f} ms, "
+                             f"{len(entries) / epoch_s:.1f} clips/s, card idle " + idle_line(busy_s, prof_s, epoch_s)
+                             + f" | host CPU ({os.cpu_count()} cores) | {smi}")
+    loaders["native (int16 wire)"].close()
+
+    lip_index = scan_lip_regions(video_pipeline.resolve_lip_root(video["cfg"]))
+    entries, c2i = lip_index.by_split("train"), lip_index.class_to_idx
+    native = NativeStreamingDataset(entries, c2i, "npy_u8", LIP_SHAPE, seed=seed)
+    grain = StreamingDataset(LipClipSource(entries, c2i), ("lip_regions",), seed=seed)
+    same = all(np.array_equal(x[0], y[0]) and np.array_equal(lx, ly)
+               for (x, lx), (y, ly) in zip(native.epoch_batches(0, True, VIDEO_BATCH),
+                                           grain.epoch_batches(0, True, VIDEO_BATCH)))
+    times = {name: host_batch_ms(ds, VIDEO_BATCH) for name, ds in (("native", native), ("grain", grain))}
+    native.close()
+    log("native-stream", f"npy_u8 records of {len(entries)} lip clips {LIP_SHAPE}: native vs LipClipSource over a "
+                         f"shuffled epoch {'byte-equal' if same else 'DIFFER'}; host batch of {VIDEO_BATCH}: native "
+                         f"{times['native'][1]:.3f} ms, grain (np.load) {times['grain'][1]:.3f} ms (means after the "
+                         f"first) | host CPU ({os.cpu_count()} cores)")
+    if not same:
+        raise SystemExit("[native-stream] the native npy_u8 records differ from np.load's")
+    cfg = video_config(video["cfg"].get("dataset.root_dir"), os.path.join(tmp, "native_video"), seed, epochs=1)
+    cfg.set("dataset.streaming", True)
+    cfg.set("dataset.loader_backend", "native")
+    t0 = time.perf_counter()
+    h = video_pipeline.main(cfg, device=DEVICE)["history"][0]
+    torch.cuda.synchronize()
+    log("native-stream", f"pipelines.video.main, streaming, loader_backend native: resnet_trans, batch {VIDEO_BATCH}, "
+                         f"1 epoch in {time.perf_counter() - t0:.2f} s: train {h['train_loss']:.4f} val "
+                         f"{h['val_loss']:.4f} test {h['test_loss']:.4f}, {h['clips_per_sec']:.1f} clips/s (train + "
+                         f"val + test) | {smi}")
+    if not np.isfinite([h["train_loss"], h["val_loss"], h["test_loss"]]).all():
+        raise SystemExit("[native-stream] video: a non-finite loss")
+    return launches
+
+
+def log_load_test(phase: str, what: str, r: dict, smi: str) -> None:
+    log(phase, f"load_test, {what}: {r['num_threads']} client threads x {r['requests'] // r['num_threads']} requests "
+               f"of {r['batch']}: p50 {r['p50_ms']:.3f} ms, p90 {r['p90_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, max "
+               f"{r['max_ms']:.3f} ms, {r['throughput_clips_per_s']:.1f} clips/s over {r['wall_s']:.3f} s | {smi}")
+
+
+def phase_load_test(seed: int, device_info: dict, stream: dict, video: dict) -> tuple:
+    """``serving.load_test`` on one card: [stream-train]'s ``WaveToLogMel``
+    vgg_lstm in a resident ``Predictor`` (B=32 waveforms, the log-mel kernel
+    in every request), then [video-train]'s resnet_trans behind
+    ``Predictor(device_preproc=device_crop)`` on full-frame requests (B=16
+    clips of 29 x 256 x 256 x 3 and their boxes, the crop kernel in every
+    request). Returns the log-mel and the crop kernel's launches."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.ops import crop_resize_cuda, logmel_cuda
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+
+    smi = device_info["smi"]
+    with torch.device("meta"):
+        model = serving.build_audio_model(stream["cfg"])
+    audio = serving.Predictor.from_checkpoint(model, stream["best"], SERVE_BATCH, device=DEVICE)
+    waves = decode_waveforms([e.path for e in scan_glips(stream["root"]).by_split("test")][:SERVE_BATCH])
+    logmel_cuda.launch_count = 0
+    r = serving.load_test(audio, (waves,), LOAD_THREADS, LOAD_AUDIO_REQUESTS)
+    mel_launches = logmel_cuda.launch_count
+    log_load_test("load-test", f"audio vgg_lstm ({len(WORDS)} words) on raw waveforms, log-mel kernel launches "
+                               f"{mel_launches}", r, smi)
+    with torch.device("meta"):
+        model = serving.build_model("video", video["cfg"])
+    crop = serving.Predictor.from_checkpoint(model, video["best"], CROP_REQUEST, device=DEVICE,
+                                             device_preproc=device_crop)
+    clips = MemoryClips(CROP_REQUEST, seed)
+    crop_resize_cuda.launch_count = 0
+    r2 = serving.load_test(crop, (clips.frames, clips.boxes), LOAD_THREADS, LOAD_CROP_REQUESTS)
+    crop_launches = crop_resize_cuda.launch_count
+    log_load_test("load-test", f"video resnet_trans on full frames {clips.frames.shape[1:]} with the device crop, crop "
+                               f"kernel launches {crop_launches}", r2, smi)
+    want = (1 + LOAD_THREADS * LOAD_AUDIO_REQUESTS, 1 + LOAD_THREADS * LOAD_CROP_REQUESTS)
+    if (mel_launches, crop_launches) != want or not np.isfinite([r["p99_ms"], r2["p99_ms"]]).all():
+        raise SystemExit(f"[load-test] kernel launches {(mel_launches, crop_launches)}, expected {want} (one a "
+                         "request and the warm-up)")
+    return mel_launches, crop_launches
+
+
+def phase_export(device_info: dict, stream: dict) -> int:
+    """``serving.export_pipeline`` on [stream-train]'s checkpoint: the
+    ``WaveToLogMel`` vgg_lstm over raw (32, 20000) waveforms through
+    ``torch.export``, saved, loaded again and run on the card: the graph
+    holds the log-mel kernel's operator, the run launches the kernel, and
+    its logits equal a resident ``Predictor``'s to 1e-6. Returns the
+    kernel's launches."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    smi = device_info["smi"]
+    out = os.path.join(stream["tmp"], "vgg_lstm.pt2")
+    t0 = time.perf_counter()
+    serving.export_pipeline(stream["cfg"], stream["best"], "audio", out, SERVE_BATCH, device=DEVICE)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = torch.export.load(out)
+    load_s = time.perf_counter() - t0
+    ops = sorted({str(n.target) for n in program.graph.nodes if n.op == "call_function" and "mlt" in str(n.target)})
+    waves = decode_waveforms([e.path for e in scan_glips(stream["root"]).by_split("test")][:SERVE_BATCH])
+    with torch.device("meta"):
+        model = serving.build_audio_model(stream["cfg"])
+    want = serving.Predictor.from_checkpoint(model, stream["best"], SERVE_BATCH, device=DEVICE).predict_logits(waves)
+    module = program.module()
+    logmel_cuda.launch_count = 0
+    with torch.inference_mode(), model_precision(torch.float32):
+        x = torch.from_numpy(waves).to(DEVICE)
+        got = module(x).cpu().numpy()
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: module(x), warmup=2, iters=10)
+    launches = logmel_cuda.launch_count
+    err = float(np.abs(got - want).max())
+    ok = ops == ["mlt.log_mel.default"] and launches > 0 and np.isfinite(got).all() and err <= EXPORT_TOL
+    log("export", f"torch.export of the streaming vgg_lstm in {export_s:.2f} s ({os.path.getsize(out) / 1e6:.1f} MB "
+                  f".pt2), loaded in {load_s:.2f} s; custom ops in its graph {ops}; the loaded program on "
+                  f"{SERVE_BATCH} waveforms: {ms:.3f} ms a call (CUDA events), log-mel kernel launches {launches}; "
+                  f"logits vs the resident Predictor's max abs err {err:.3e} (tolerance {EXPORT_TOL:g}) "
+                  f"{'ok' if ok else 'FAIL'} | {smi}")
+    if not ok:
+        raise SystemExit("[export] the exported program does not hold or launch the log-mel kernel, or its logits "
+                         "differ from the Predictor's")
+    return launches
+
+
+def rebuild_predict(pipeline: str, cfg, best: str, groups: list, batch: int) -> np.ndarray:
+    """A ``predict_clips`` call as the parent commit made it: the model built
+    and initialized on the host, the whole checkpoint read, its state
+    copied into the model, which then moves to the card."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_module_state
+
+    model = serving.build_model(pipeline, cfg)
+    load_module_state(model, load_checkpoint(best)["state"])
+    predictor = serving.Predictor(model=model, batch_size=batch, device=DEVICE)
+    return predictor.predict_logits(*serving._featurize_modalities(pipeline, cfg, groups, device=DEVICE))
+
+
+def cold_call_breakdown(pipeline: str, cfg, best: str, groups: list, batch: int, pinned: bool) -> dict:
+    """Milliseconds of each stage of one ``predict_clips`` call (host clock,
+    the card synchronized after each): the memory-mapped read, the build on
+    ``meta``, pinning the state (or not: ``pinned=False`` copies from the
+    memory-mapped pages), its copy to the card, featurization and the
+    forward with the logits back."""
+    from multimodal_lipread_torch import serving
+
+    stages, t0 = {}, time.perf_counter()
+
+    def stage(name: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stages[name] = (t1 - t0) * 1e3
+        t0 = t1
+
+    state, classes = serving.read_checkpoint(best)
+    stage("mmap read")
+    with torch.device("meta"):
+        model = serving.build_model(pipeline, cfg, len(classes) if classes else None)
+    stage("meta build")
+    tensors = {**state["params"], **state["batch_stats"]}
+    if pinned:
+        tensors = {k: v.pin_memory() for k, v in tensors.items()}
+    stage("pin" if pinned else "no pin")
+    model.load_state_dict(tensors, strict=True, assign=True)
+    model.to(DEVICE, non_blocking=True)
+    stage(f"H2D of {sum(t.nbytes for t in tensors.values()) / 1e6:.1f} MB")
+    inputs = serving._featurize_modalities(pipeline, cfg, groups, device=DEVICE)
+    stage("featurize")
+    serving.Predictor(model=model, batch_size=batch, device=DEVICE).predict_logits(*inputs)
+    stage("forward + D2H")
+    return stages
+
+
+def phase_serve_cold(device_info: dict, cv: dict, acv: dict, cues: dict) -> int:
+    """One ``predict_clips`` call of 16 clips for cv, acv and bert-base from
+    the checkpoints the run wrote (a model built on ``meta``, the checkpoint
+    memory-mapped, its ``state`` moved to the card from pinned memory),
+    against the parent commit's way (``rebuild_predict``) and a resident
+    request, in turns; the same logits expected. Then a request's 16 lip
+    ``.npy`` files through ``np.load`` and through ``serving.load_lips``.
+    Returns the log-mel kernel's launches."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.cues import load_cue_records
+    from multimodal_lipread_torch.ops import logmel_cuda
+
+    smi = device_info["smi"]
+    records = load_cue_records(cues["root"], "emotion")[:CUES_REQUEST]
+    runs = (("cues_video", cv, fusion_request_groups(cv, False, CV_REQUEST)[0], CV_REQUEST),
+            ("audio_cues_video", acv, fusion_request_groups(acv, True, ACV_REQUEST)[0], ACV_REQUEST),
+            ("cues", cues, [[p] for p in write_cue_texts(os.path.join(cues["tmp"], "cold"),
+                                                        [r.description for r in records])], CUES_REQUEST))
+    logmel_cuda.launch_count = 0
+    for pipeline, run, groups, batch in runs:
+        cfg, best = run["cfg"], run["best"]
+        new, old = "predict_clips", "parent's predict_clips"
+        times, logits = {new: [], old: []}, {}
+        for name in (new, old, old, new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == new:
+                out = np.asarray([r["logits"] for r in serving.predict_clips(cfg, best, pipeline, groups, batch,
+                                                                            device=DEVICE)])
+            else:
+                out = rebuild_predict(pipeline, cfg, best, groups, batch)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            logits[name] = out
+        model = serving.load_model(functools.partial(serving.build_model, pipeline, cfg), best, DEVICE)[0]
+        predictor = serving.Predictor(model=model, batch_size=batch, device=DEVICE)
+        predictor.predict_logits(*serving._featurize_modalities(pipeline, cfg, groups, device=DEVICE))
+        t0 = time.perf_counter()
+        predictor.predict_logits(*serving._featurize_modalities(pipeline, cfg, groups, device=DEVICE))
+        resident_ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(logits[new] - logits[old]).max())
+        size = os.path.getsize(best) / 1e6
+        log("serve-cold", f"{pipeline} ({cfg.get('model.name')}, checkpoint {size:.1f} MB): one predict_clips call of "
+                          f"{len(groups)} clips {times[new][0]:.2f} / {times[new][1]:.2f} ms (meta build, mmap, state "
+                          f"only, pinned copy), the parent's way (host build + whole checkpoint read) "
+                          f"{times[old][0]:.2f} / {times[old][1]:.2f} ms, in turns; a resident request "
+                          f"{resident_ms:.2f} ms; logits max abs difference {err:.3e} | {smi}")
+        if not err <= EXPORT_TOL:
+            raise SystemExit(f"[serve-cold] {pipeline}: predict_clips' logits differ from the parent's way's")
+        for pinned in (True, False, True, False):
+            stages = cold_call_breakdown(pipeline, cfg, best, groups, batch, pinned)
+            log("serve-cold", f"{pipeline} call by stage ({'pinned' if pinned else 'pageable'} copy): " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in stages.items()) + f" | {smi}")
+    paths = [g[-1] for g in runs[0][2]]
+    old, new = [], []
+    for _ in range(BREAKDOWN_ITERS):
+        t0 = time.perf_counter()
+        a = np.stack([np.load(p) for p in paths])
+        t1 = time.perf_counter()
+        b = serving.load_lips(paths)
+        new.append((time.perf_counter() - t1) * 1e3)
+        old.append((t1 - t0) * 1e3)
+    same = a.dtype == b.dtype and np.array_equal(a, b)
+    log("serve-cold", f"a request's {len(paths)} lip .npy files: np.load {np.mean(old):.3f} ms, serving.load_lips "
+                      f"(native threaded loader) {np.mean(new):.3f} ms (means of {BREAKDOWN_ITERS}, in turns), "
+                      f"{'byte-equal' if same else 'DIFFER'} | host CPU ({os.cpu_count()} cores)")
+    if not same:
+        raise SystemExit("[serve-cold] load_lips differs from np.load")
+    return logmel_cuda.launch_count
 
 
 def dispatch_measures(trainer, ds, seed: int) -> dict:
@@ -2835,14 +3233,19 @@ def main(argv=None) -> int:
     launches = timed("serve", phase_serve, seed, device_info)
     train = timed("train", phase_train, seed, device_info)
     launches += train["launches"]
-    stream_launches = timed("stream-train", phase_stream_train, seed, device_info)
-    launches += stream_launches
-    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_video_")
+    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_")
     try:
+        stream = timed("stream-train", phase_stream_train, seed, device_info, tmp)
+        launches += stream["launches"]
         video = timed("video-train", phase_video_train, seed, device_info, tmp)
         timed("video-serve", phase_video_serve, video, device_info)
         crop_launches = timed("crop-train", phase_crop_train, seed, device_info, tmp)["launches"]
         crop_launches += timed("mp4", phase_mp4, seed, device_info, tmp)
+        launches += timed("native-stream", phase_native_stream, seed, device_info, stream, video)
+        load_mel, load_crop = timed("load-test", phase_load_test, seed, device_info, stream, video)
+        launches += load_mel
+        crop_launches += load_crop
+        launches += timed("export", phase_export, device_info, stream)
         av = timed("av-train", phase_av_train, seed, device_info, tmp)
         launches += av["launches"]
         launches += timed("av-serve", phase_av_serve, av, device_info)
@@ -2856,6 +3259,7 @@ def main(argv=None) -> int:
         acv = timed("acv-train", phase_acv_train, seed, device_info, cv)
         launches += acv["launches"]
         launches += timed("acv-serve", phase_acv_serve, acv, device_info)
+        launches += timed("serve-cold", phase_serve_cold, device_info, cv, acv, cues)
         launches += timed("frozen", phase_frozen, seed, device_info, acv)
         timed("graphs", phase_graphs, seed, device_info, tmp, {
             "audio_video": av["datasets"]["train"], "audio_cues_video": acv["datasets"]["train"],
@@ -2878,8 +3282,8 @@ def main(argv=None) -> int:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
-        "paths": ["serve", "train", "stream-train", "av-train", "av-serve", "ac-train", "ac-serve", "acv-train",
-                  "acv-serve", "frozen"],
+        "paths": ["serve", "train", "stream-train", "native-stream", "load-test", "export", "av-train", "av-serve",
+                  "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen"],
     }, {
         "name": "crop_resize",
         "route": "cuda",
@@ -2892,7 +3296,7 @@ def main(argv=None) -> int:
         "bound_ms": crop["rows"][CROP_CLIPS[0]]["bound_ms"],
         "bound_by": crop["rows"][CROP_CLIPS[0]]["bound_by"],
         "library_ms": crop["rows"][CROP_CLIPS[0]]["library_ms"],
-        "paths": ["crop-train", "mp4"],
+        "paths": ["crop-train", "mp4", "load-test"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

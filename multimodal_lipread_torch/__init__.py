@@ -18,8 +18,14 @@ halves, joined clip by clip), the cue classifiers and the audio_cues,
 cues_video and audio_cues_video fusions; ``model.pretrained`` grafts
 converted backbone weights into any of them. Training also streams
 (``data/grain_loader.py``: WAV clips, ``.npy`` lips, or ``.mp4`` clips
-cropped on the host or by the crop kernel in the train step) and runs
-device-resident steps as CUDA graphs. See ROADMAP.md for what remains.
+cropped on the host or by the crop kernel in the train step; with
+``dataset.loader_backend: native`` through the C++ prefetcher and an int16
+wire) and runs device-resident steps as CUDA graphs. Audio decodes through
+ffmpeg where a clip is not 16 kHz WAV (``tools/transcode.py`` builds a WAV
+mirror once). Serving also measures tail latency (``load_test``) and
+exports a checkpoint's graph with ``torch.export``; ``cli.py`` holds the
+entry functions and ``data/frame_extraction.py``, ``tools/data_clean.py``
+the offline tools. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

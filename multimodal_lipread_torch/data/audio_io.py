@@ -1,19 +1,23 @@
-"""Host-side WAV decode to fixed-length waveforms (counterpart of the JAX
+"""Host-side audio decode to fixed-length waveforms (counterpart of the JAX
 package's ``data/audio_io.py``).
 
-Decodes PCM WAV with the standard library's ``wave`` module into a float32
-waveform in int16 sample range, padded or truncated to 20 000 samples
-(1.25 s at 16 kHz). All spectral work then runs on the device
+Decodes PCM WAV with the standard library's ``wave`` module, and compressed
+formats (GLips ships ``.m4a``) or a WAV at another rate through an
+``ffmpeg`` subprocess that resamples and downmixes to mono int16 PCM, into
+a float32 waveform in int16 sample range, padded or truncated to 20 000
+samples (1.25 s at 16 kHz). All spectral work then runs on the device
 (``ops/logmel_cuda.py``). Batches of PCM16 WAVs go through the threaded
 native decoder first (``data/native_io.py``, via
 ``pipelines.common.decode_waveforms``); this is the per-file path for what it
-does not take. Compressed formats and resampling (ffmpeg) are not ported
-yet (ROADMAP.md).
+does not take. ``tools/transcode.py`` decodes a corpus once into a WAV
+mirror with the same ffmpeg pipeline.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
 import wave
 from typing import Optional, Tuple
 
@@ -48,25 +52,46 @@ def _load_wav(path: str) -> Tuple[np.ndarray, int]:
     return data, sr
 
 
+def _ffmpeg_available() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def _load_via_ffmpeg(path: str, sample_rate: int) -> np.ndarray:
+    """Decode any format ffmpeg reads → mono int16 PCM at ``sample_rate``,
+    as float32 in int16 range (the resampling and downmix happen in
+    ffmpeg)."""
+    cmd = [
+        "ffmpeg", "-v", "error", "-i", path,
+        "-f", "s16le", "-acodec", "pcm_s16le",
+        "-ac", "1", "-ar", str(sample_rate), "-",
+    ]
+    out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    return np.frombuffer(out, dtype="<i2").astype(np.float32)
+
+
 def load_waveform(
     path: str,
     sample_rate: int = SAMPLE_RATE,
     target_samples: Optional[int] = TARGET_SAMPLES,
 ) -> np.ndarray:
-    """Load a WAV file as a mono float32 waveform, zero-padded or truncated
-    to ``target_samples``."""
+    """Load an audio file as a mono float32 waveform, zero-padded or
+    truncated to ``target_samples``. A WAV at ``sample_rate`` is read here;
+    any other file, or a WAV at another rate, goes through ffmpeg, and
+    raises ``RuntimeError`` where ffmpeg is not installed."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".wav":
-        raise NotImplementedError(
-            f"decoding {ext} needs ffmpeg, which the PyTorch port does not use yet "
-            "(ROADMAP.md); convert the clips to 16 kHz PCM WAV"
-        )
-    data, sr = _load_wav(path)
-    if sr != sample_rate:
-        raise NotImplementedError(
-            f"WAV at {sr} Hz needs resampling, which the PyTorch port does not do yet "
-            f"(ROADMAP.md): {path}"
-        )
+    if ext == ".wav":
+        data, sr = _load_wav(path)
+        if sr != sample_rate:
+            if not _ffmpeg_available():
+                raise RuntimeError(f"WAV at {sr} Hz needs resampling but ffmpeg is unavailable: {path}")
+            data = _load_via_ffmpeg(path, sample_rate)
+    else:
+        if not _ffmpeg_available():
+            raise RuntimeError(
+                f"Decoding {ext} requires ffmpeg, which is not installed. "
+                f"Convert the dataset to 16 kHz WAV or install ffmpeg."
+            )
+        data = _load_via_ffmpeg(path, sample_rate)
     if target_samples is not None:
         if data.shape[0] > target_samples:
             data = data[:target_samples]

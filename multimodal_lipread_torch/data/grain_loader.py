@@ -20,7 +20,10 @@ The video sources build their lip detector lazily, once per process, and
 leave it out of their pickled state, so a loader worker process builds its
 own. ``StreamingDataset`` reads one epoch at a time through a
 ``DataLoader`` (``num_workers`` worker processes, started with ``spawn``),
-for ``Trainer.fit``.
+for ``Trainer.fit``. ``NativeStreamingDataset`` does the same on the C++
+prefetcher of ``native/mlt_io.cpp`` (``dataset.loader_backend: native``):
+in-process threads, no per-record Python, one modality (WAV waveforms or
+uint8 ``.npy`` lips).
 """
 
 from __future__ import annotations
@@ -191,3 +194,116 @@ class StreamingDataset:
         )
         for batch in loader:
             yield (tuple(batch[k] for k in self.input_keys), batch[self.label_key].astype(np.int32))
+
+
+class NativeStreamingDataset:
+    """:class:`StreamingDataset`'s interface (``__len__``,
+    ``global_batches``, ``example_inputs``, ``epoch_batches``, ``close``)
+    on the native prefetcher (``data/native_io.NativePrefetcher``): its
+    thread pool reads the records of an epoch, in order, into a bounded
+    ring while the card trains on the previous batches.
+
+    - ``kind='wav'``: PCM16 WAVs → float32 waveforms of ``record_shape``
+      ``(20000,)`` at ``sample_rate``; every entry must be a ``.wav``
+      (``tools/transcode.ensure_wav_mirror`` makes a mirror of others);
+    - ``kind='npy_u8'``: uint8 lip ``.npy`` records of ``record_shape``;
+    - an epoch's order is ``np.random.default_rng(seed + epoch)
+      .permutation`` when shuffled, the index order otherwise, sharded
+      ``[shard_index::shard_count]`` (0 / 1 by default), as
+      :class:`StreamingDataset`'s;
+    - a file the prefetcher could not read raises, naming the file;
+    - ``wire_dtype='int16'`` (``kind='wav'`` only) ships the waveforms as
+      int16, half the bytes to the card, where the trainer casts them back
+      to float32. The cast is exact for mono PCM16; a batch holding a
+      sample that is not integral (a stereo source's channel mean, a
+      32-bit source) raises, naming the clip, instead of truncating it."""
+
+    def __init__(
+        self,
+        entries: Sequence[ClipEntry],
+        class_to_idx: Dict[str, int],
+        kind: str,
+        record_shape: Sequence[int],
+        sample_rate: int = 16000,
+        seed: int = 0,
+        n_threads: Optional[int] = None,
+        capacity: int = 256,
+        shard_index: int = 0,
+        shard_count: int = 1,
+        wire_dtype: Optional[str] = None,
+    ):
+        from multimodal_lipread_torch.data.native_io import DEFAULT_THREADS, NativePrefetcher
+
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index {shard_index} outside [0, {shard_count})")
+        self.entries = list(entries)
+        if kind == "wav":
+            bad = [e.path for e in self.entries if not e.path.lower().endswith(".wav")]
+            if bad:
+                raise ValueError(
+                    f"loader_backend 'native' decodes PCM16 WAV only; found {len(bad)} non-WAV clips "
+                    f"(e.g. {bad[0]}): transcode them (tools/transcode.py) or use the grain backend"
+                )
+        if wire_dtype not in (None, "int16"):
+            raise ValueError(f"unsupported wire_dtype {wire_dtype!r}")
+        if wire_dtype == "int16" and kind != "wav":
+            raise ValueError("wire_dtype='int16' only applies to kind='wav'")
+        self.labels = np.asarray([class_to_idx[e.word] for e in self.entries], np.int32)
+        self.seed = seed
+        self.wire_dtype = wire_dtype
+        self.shard_index = shard_index
+        self.shard_count = shard_count
+        self._prefetcher = NativePrefetcher(
+            [e.path for e in self.entries], kind, record_shape, sample_rate=sample_rate, capacity=capacity,
+            n_threads=n_threads or DEFAULT_THREADS,
+        )
+
+    def __len__(self) -> int:
+        n, c, i = len(self.entries), self.shard_count, self.shard_index
+        return (n - i + c - 1) // c
+
+    def global_batches(self, per_host: int) -> int:
+        """The batch count of the largest shard: the steps every shard runs."""
+        largest_shard = -(-len(self.entries) // self.shard_count)
+        return max(1, -(-largest_shard // max(1, per_host)))
+
+    def example_inputs(self, n: int) -> tuple:
+        """Zeros of ``n`` records in the wire's dtype: a shape and dtype template."""
+        dtype = np.int16 if self.wire_dtype == "int16" else self._prefetcher.dtype
+        return (np.zeros((n,) + self._prefetcher.record_shape, dtype),)
+
+    def epoch_order(self, epoch: int, shuffle: bool) -> np.ndarray:
+        n = len(self.entries)
+        order = np.random.default_rng(self.seed + epoch).permutation(n) if shuffle else np.arange(n)
+        return order[self.shard_index :: self.shard_count]
+
+    def epoch_batches(self, epoch: int, shuffle: bool, batch_size: int):
+        """Yield ``(inputs, labels)`` numpy batches of one epoch, the last
+        one short where the shard does not fill it."""
+        order = self.epoch_order(epoch, shuffle).astype(np.int64)
+        self._prefetcher.start_epoch(order)
+        consumed = 0
+        while True:
+            batch = self._prefetcher.next_batch(batch_size)
+            if batch is None:
+                break
+            err = self._prefetcher.first_error
+            if err >= 0:
+                raise RuntimeError(f"the native prefetcher could not read {self.entries[err].path} "
+                                   "(corrupt file, wrong shape, or unsupported format)")
+            idx = order[consumed : consumed + len(batch)]
+            consumed += len(batch)
+            if self.wire_dtype == "int16":
+                wire = batch.astype(np.int16)
+                inexact = np.flatnonzero((wire != batch).any(axis=1))
+                if inexact.size:
+                    raise ValueError(
+                        f"wire_dtype int16: {self.entries[idx[inexact[0]]].path} has samples that are not "
+                        "integral (a stereo or 32-bit source): transcode it to mono PCM16, or leave "
+                        "dataset.wire_dtype unset"
+                    )
+                batch = wire
+            yield (batch,), self.labels[idx]
+
+    def close(self) -> None:
+        self._prefetcher.close()

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
@@ -38,6 +39,7 @@ _MAX_CANVAS_BYTES = 48 * 1024
 
 # launches of the kernel in this process; a caller may set it to 0
 launch_count = 0
+_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +100,8 @@ def _crop(frames: torch.Tensor, boxes: torch.Tensor, target_size: Tuple[int, int
                                             th, tw, int(bool(normalize)), stream)
     if rc != 0:
         raise RuntimeError(f"crop kernel launch failed with CUDA error {rc}")
-    launch_count += 1
+    with _count_lock:  # clients on several threads launch (serving.load_test)
+        launch_count += 1
     return out
 
 

@@ -8,6 +8,14 @@ or raises; for a tensor on the CPU it runs the plain version,
 other. ``launch_count`` counts the kernel's launches, so a caller can show
 that a run went through the kernel.
 
+It does so through the custom operator ``torch.ops.mlt.log_mel``
+(``torch.library.custom_op``): its CUDA implementation is the kernel, its
+CPU implementation the plain version, and a fake implementation gives
+``torch.export`` the output's shape. So an exported model holds the
+operator, opaque, and runs the kernel on the card. Importing this module
+registers the operator: load an exported program that holds it
+(``serving.export_pipeline``) after importing the port.
+
 The kernel reads the raw (B, 20000) waveform and does the reflect padding
 and framing by index arithmetic, and standardizes within the same launch;
 its design and bound are in the source. Its tables are built here:
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -62,6 +71,7 @@ KERNEL_MEL_BAND = 16
 
 # launches of the kernel in this process; a caller may set it to 0
 launch_count = 0
+_count_lock = threading.Lock()
 
 
 def kernel_basis() -> np.ndarray:
@@ -154,13 +164,39 @@ def launch_config(batch: int, device: torch.device | str = "cuda") -> dict:
 
 
 def log_mel(wave: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-    """(B, 20000) waveforms → (B, 80, 126) float32 log-mel spectrograms.
+    """(B, 20000) waveforms → (B, 80, 126) float32 log-mel spectrograms,
+    through ``torch.ops.mlt.log_mel``.
 
     Forward only, as in the JAX package: the kernel has no backward, so a
     ``wave`` that requires a gradient while autograd is on is refused (on
     the CPU too) rather than answered with a tensor that silently has
     none."""
-    return _log_mel(wave, normalize)
+    if wave.ndim != 2 or wave.shape[1] != NUM_SAMPLES:
+        raise ValueError(f"log_mel expects (B, {NUM_SAMPLES}) waveforms, got {tuple(wave.shape)}")
+    if wave.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the log-mel kernel has no backward: pass a waveform that does not require a gradient "
+                         "(wave.detach()), or run under torch.no_grad()")
+    if wave.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"log_mel runs on a CUDA card or the CPU, not {wave.device}")
+    return torch.ops.mlt.log_mel(wave, normalize)
+
+
+@torch.library.custom_op("mlt::log_mel", mutates_args=(), device_types="cuda")
+def _log_mel_op(wave: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """The kernel: ``torch.ops.mlt.log_mel`` on a CUDA tensor."""
+    return _launch(wave, normalize)
+
+
+@_log_mel_op.register_kernel("cpu")
+def _log_mel_op_cpu(wave: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """The plain version: ``torch.ops.mlt.log_mel`` on a CPU tensor
+    (contiguous, as the kernel writes it)."""
+    return log_mel_reference(wave, normalize).contiguous()
+
+
+@_log_mel_op.register_fake
+def _log_mel_op_fake(wave: torch.Tensor, normalize: bool) -> torch.Tensor:
+    return wave.new_empty((wave.shape[0], N_MELS, NUM_FRAMES), dtype=torch.float32)
 
 
 def phase_times(wave: torch.Tensor, normalize: bool = True) -> dict:
@@ -173,7 +209,7 @@ def phase_times(wave: torch.Tensor, normalize: bool = True) -> dict:
     if wave.device.type != "cuda":
         raise ValueError("phase_times measures the kernel on a CUDA card")
     stamps = torch.zeros((wave.shape[0], KERNEL_TILES, len(PHASES)), dtype=torch.int64, device=wave.device)
-    _log_mel(wave, normalize, stamps)
+    _launch(wave, normalize, stamps)
     raw = stamps.reshape(-1, len(PHASES)).cpu()
     last = raw[:, -1] > 0  # the blocks that standardized their clip
     t = (raw - raw[:, 0].min()).double() / 1e3  # offsets first: ns stamps exceed a double's 53 bits
@@ -186,17 +222,11 @@ def phase_times(wave: torch.Tensor, normalize: bool = True) -> dict:
     return out
 
 
-def _log_mel(wave: torch.Tensor, normalize: bool, stamps: torch.Tensor | None = None) -> torch.Tensor:
+def _launch(wave: torch.Tensor, normalize: bool, stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the kernel on a CUDA ``wave``."""
     global launch_count
     if wave.ndim != 2 or wave.shape[1] != NUM_SAMPLES:
         raise ValueError(f"log_mel expects (B, {NUM_SAMPLES}) waveforms, got {tuple(wave.shape)}")
-    if wave.requires_grad and torch.is_grad_enabled():
-        raise ValueError("the log-mel kernel has no backward: pass a waveform that does not require a gradient "
-                         "(wave.detach()), or run under torch.no_grad()")
-    if wave.device.type == "cpu":
-        return log_mel_reference(wave, normalize)
-    if wave.device.type != "cuda":
-        raise ValueError(f"log_mel runs on a CUDA card or the CPU, not {wave.device}")
     if wave.dtype != torch.float32:
         raise TypeError(f"the log-mel kernel takes float32 waveforms, got {wave.dtype}")
     if not wave.is_contiguous():
@@ -217,5 +247,6 @@ def _log_mel(wave: torch.Tensor, normalize: bool, stamps: torch.Tensor | None = 
         )
     if rc != 0:
         raise RuntimeError(f"log-mel kernel launch failed with CUDA error {rc}")
-    launch_count += 1
+    with _count_lock:  # clients on several threads launch (serving.load_test)
+        launch_count += 1
     return out

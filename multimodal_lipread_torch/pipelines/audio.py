@@ -12,23 +12,32 @@ keeping the best-val checkpoint and running the final test on it. Logs go
 to ``<output.base_dir>/metrics``, checkpoints (``<model>_best.pt``, which
 ``serving.py`` serves) to ``<output.base_dir>/models_trained``.
 
-``dataset.streaming: true`` streams the waveforms per epoch instead
-(``data/grain_loader.AudioClipSource``, ``dataset.num_workers`` loader
-processes), and the model is wrapped in ``WaveToLogMel``: the log-mel
-kernel runs inside every train and eval step's forward.
+``dataset.streaming: true`` streams the waveforms per epoch instead, and
+the model is wrapped in ``WaveToLogMel``: the log-mel kernel runs inside
+every train and eval step's forward. The loader is
+``dataset.loader_backend``:
+
+- ``grain`` (the default): ``data/grain_loader.AudioClipSource`` through a
+  ``DataLoader`` of ``dataset.num_workers`` processes, each clip decoded in
+  Python (``.m4a`` and off-rate WAVs through ffmpeg);
+- ``native``: the C++ prefetcher (``NativeStreamingDataset``,
+  ``dataset.num_workers`` threads), PCM16 WAV only: clips that are not WAV
+  are transcoded once into a WAV mirror under ``dataset.wav_cache_dir``
+  (default ``<root_dir>/wav_cache``, ``tools/transcode.py``).
+  ``dataset.wire_dtype: int16`` ships the waveforms to the card as int16.
 
 ``model.pretrained`` grafts converted backbone weights after the
-initialization (``pipelines/common.load_pretrained_backbones``). Not
-ported yet: ``dataset.loader_backend: native`` (the C++ prefetcher,
-ROADMAP.md Queue 1 #11) raises ``NotImplementedError``.
+initialization (``pipelines/common.load_pretrained_backbones``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Union
 
 from multimodal_lipread_torch.config import Config
-from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips
+from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES
+from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, scan_glips
 from multimodal_lipread_torch.data.grain_loader import AudioClipSource
 from multimodal_lipread_torch.models.audio import get_audio_model
 from multimodal_lipread_torch.models.frontend import WaveToLogMel
@@ -38,8 +47,8 @@ from multimodal_lipread_torch.pipelines.common import (
     load_pretrained_backbones,
     maybe_plot,
     model_dtype,
+    native_streaming_datasets,
     parse_cli,
-    refuse_native_loader,
     streaming_datasets,
     trainer_extras,
 )
@@ -52,7 +61,6 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
-    refuse_native_loader(cfg)
     root_dir = cfg.get("dataset.root_dir")
     num_classes = cfg.get("dataset.num_classes", 4)
     input_size = cfg.get("dataset.input_size", 117)
@@ -61,8 +69,19 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
     streaming = bool(cfg.get("dataset.streaming", False))
     if streaming:
         index = scan_glips(root_dir, exts=AUDIO_EXTS)
-        datasets = streaming_datasets(cfg, lambda split: AudioClipSource(index.by_split(split), index.class_to_idx),
-                                      ("waveform",))
+        if cfg.get("dataset.loader_backend", "grain") == "native":
+            entries = {split: index.by_split(split) for split in SPLITS}
+            if any(not e.path.lower().endswith(".wav") for es in entries.values() for e in es):
+                from multimodal_lipread_torch.tools.transcode import ensure_wav_mirror
+
+                cache = cfg.get("dataset.wav_cache_dir", os.path.join(root_dir, "wav_cache"))
+                entries = {split: ensure_wav_mirror(es, cache, workers=cfg.get("dataset.num_workers", 0) or 8)
+                           for split, es in entries.items()}
+            datasets = native_streaming_datasets(cfg, entries, index.class_to_idx, "wav", (TARGET_SAMPLES,),
+                                                 wire_dtype=cfg.get("dataset.wire_dtype"))
+        else:
+            datasets = streaming_datasets(
+                cfg, lambda split: AudioClipSource(index.by_split(split), index.class_to_idx), ("waveform",))
     else:
         datasets, index = load_audio_datasets(root_dir, input_size=input_size, device=device)
     if len(index.classes) != num_classes:
@@ -84,6 +103,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         TrainerConfig(
             model_name=model_name,
             num_classes=num_classes,
+            class_names=tuple(index.classes),
             batch_size=cfg.get("training.batch_size", 32),
             epochs=cfg.get("training.epochs", 10),
             learning_rate=cfg.get("training.learning_rate", 5e-4),

@@ -98,6 +98,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         TrainerConfig(
             model_name=model_name,
             num_classes=num_classes,
+            class_names=tuple(classes),
             batch_size=cfg.get("train.batch", cfg.get("training.batch_size", 32)),
             epochs=cfg.get("train.epochs", cfg.get("training.epochs", 5)),
             learning_rate=cfg.get("train.lr", cfg.get("training.learning_rate", 1e-3)),

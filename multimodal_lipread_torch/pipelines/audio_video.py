@@ -94,6 +94,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         TrainerConfig(
             model_name=model_name,
             num_classes=num_classes,
+            class_names=tuple(classes),
             batch_size=cfg.get("training.batch_size", 8),
             epochs=cfg.get("training.epochs", 10),
             learning_rate=cfg.get("training.learning_rate", 1e-4),

@@ -8,7 +8,8 @@ by the log-mel kernel in chunks of 256 clips. Lip tensors are loaded once
 and kept uint8 on the host; the trainer and the predictor scale them to
 [0, 1] on the device. The streaming branches (``dataset.streaming`` and
 the video pipeline's ``device_crop`` / ``host_crop_streaming``) read one
-epoch at a time through ``streaming_datasets`` instead.
+epoch at a time through ``streaming_datasets`` instead, or, with
+``dataset.loader_backend: native``, through ``native_streaming_datasets``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from multimodal_lipread_torch.config import Config, coerce_yaml_scalar, load_config
 from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES, load_waveform
 from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, scan_glips, scan_lip_regions
-from multimodal_lipread_torch.data.grain_loader import StreamingDataset
+from multimodal_lipread_torch.data.grain_loader import NativeStreamingDataset, StreamingDataset
 from multimodal_lipread_torch.ops.logmel_cuda import log_mel
 from multimodal_lipread_torch.train.trainer import ArrayDataset
 
@@ -220,17 +221,22 @@ def load_pretrained_backbones(trainer: Any, cfg: Config) -> int:
     return len(specs)
 
 
-def refuse_native_loader(cfg: Config) -> None:
-    """``dataset.loader_backend: native`` (the C++ prefetcher) is not ported."""
-    if cfg.get("dataset.streaming", False) and cfg.get("dataset.loader_backend", "grain") == "native":
-        raise NotImplementedError("dataset.loader_backend: native (the C++ streaming prefetcher) is not ported "
-                                  "to PyTorch yet (ROADMAP.md, Queue 1 #11)")
-
-
 def streaming_datasets(cfg: Config, source, input_keys: tuple) -> dict:
     """One ``StreamingDataset`` per split over ``source(split)``."""
     return {split: StreamingDataset(source(split), input_keys=input_keys, seed=cfg.get("training.seed", 0),
                                     worker_count=cfg.get("dataset.num_workers", 0))
+            for split in SPLITS}
+
+
+def native_streaming_datasets(cfg: Config, entries_by_split: Dict[str, list], class_to_idx: Dict[str, int],
+                              kind: str, record_shape: tuple, wire_dtype: Optional[str] = None) -> dict:
+    """One ``NativeStreamingDataset`` per split (``dataset.loader_backend:
+    native``), ``dataset.num_workers`` prefetch threads (0: the library's
+    default)."""
+    return {split: NativeStreamingDataset(entries_by_split[split], class_to_idx, kind=kind,
+                                          record_shape=record_shape, seed=cfg.get("training.seed", 0),
+                                          n_threads=cfg.get("dataset.num_workers", 0) or None,
+                                          wire_dtype=wire_dtype)
             for split in SPLITS}
 
 

@@ -26,12 +26,13 @@ Streaming, per epoch, instead of the whole corpus in memory
   44 × 44 lips inside the train step, as the trainer's ``device_preproc``;
 - ``dataset.host_crop_streaming``: the same clips decoded, detected and
   cropped on the host (the reference's layout);
-- ``dataset.streaming``: the ``.npy`` lip tensors of the mirror tree.
+- ``dataset.streaming``: the ``.npy`` lip tensors of the mirror tree, with
+  ``dataset.loader_backend: native`` through the C++ prefetcher
+  (``NativeStreamingDataset``: raw uint8 records of (29, 44, 44, 3),
+  ``dataset.num_workers`` threads).
 
 ``model.pretrained`` grafts converted backbone weights after the
-initialization (``pipelines/common.load_pretrained_backbones``). Not
-ported yet: ``dataset.loader_backend: native`` (the C++ prefetcher,
-ROADMAP.md Queue 1 #11) raises ``NotImplementedError``.
+initialization (``pipelines/common.load_pretrained_backbones``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,13 @@ import os
 from typing import Any, Dict, Union
 
 from multimodal_lipread_torch.config import Config
-from multimodal_lipread_torch.data.glips import lip_regions_root, lipread_files_dir, scan_glips, scan_lip_regions
+from multimodal_lipread_torch.data.glips import (
+    SPLITS,
+    lip_regions_root,
+    lipread_files_dir,
+    scan_glips,
+    scan_lip_regions,
+)
 from multimodal_lipread_torch.data.grain_loader import FullFrameClipSource, HostCropClipSource, LipClipSource
 from multimodal_lipread_torch.models.video import get_video_model
 from multimodal_lipread_torch.pipelines.common import (
@@ -48,9 +55,10 @@ from multimodal_lipread_torch.pipelines.common import (
     load_pretrained_backbones,
     load_video_datasets,
     maybe_plot,
+    LIP_SHAPE,
     model_dtype,
+    native_streaming_datasets,
     parse_cli,
-    refuse_native_loader,
     streaming_datasets,
     trainer_extras,
 )
@@ -82,7 +90,6 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
-    refuse_native_loader(cfg)
     backend = cfg.get("dataset.landmark_backend", "auto")
     extra = {}
     if cfg.get("dataset.device_crop", False):
@@ -98,8 +105,12 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             index.by_split(split), index.class_to_idx, backend=backend), ("lip_regions",))
     elif cfg.get("dataset.streaming", False):
         index = scan_lip_regions(resolve_lip_root(cfg))
-        datasets = streaming_datasets(cfg, lambda split: LipClipSource(index.by_split(split), index.class_to_idx),
-                                      ("lip_regions",))
+        if cfg.get("dataset.loader_backend", "grain") == "native":
+            datasets = native_streaming_datasets(cfg, {split: index.by_split(split) for split in SPLITS},
+                                                 index.class_to_idx, "npy_u8", LIP_SHAPE)
+        else:
+            datasets = streaming_datasets(
+                cfg, lambda split: LipClipSource(index.by_split(split), index.class_to_idx), ("lip_regions",))
     else:
         datasets, index = load_video_datasets(resolve_lip_root(cfg))
     num_classes = cfg.get("dataset.num_classes", len(index.classes))
@@ -123,6 +134,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
         TrainerConfig(
             model_name=model_name,
             num_classes=num_classes,
+            class_names=tuple(index.classes),
             batch_size=cfg.get("training.batch_size", 16),
             epochs=cfg.get("training.epochs", 10),
             learning_rate=cfg.get("training.learning_rate", 5e-5),

@@ -23,8 +23,8 @@ package's ``serving.py``).
   ``audio_cues_video`` a WAV, a text file and a ``.npy`` (the JAX order of
   ``_PIPELINE_INPUTS``).
 - a CLI: ``python -m multimodal_lipread_torch.serving --pipeline
-  <pipeline> --config <yaml> --checkpoint <path> <clips...>`` → JSON
-  predictions (WAV files for audio, lip-region ``.npy`` files for video,
+  <pipeline> --config <yaml> --checkpoint <path> [--export PATH.pt2]
+  <clips...>`` → JSON predictions (WAV files for audio, lip-region ``.npy`` files for video,
   ``clip.wav,clip.npy`` groups for audio_video, cue ``.txt`` files for
   cues, ``clip.wav,cue.txt`` groups for audio_cues, ``cue.txt,lips.npy``
   groups for cues_video, ``clip.wav,cue.txt,lips.npy`` groups for
@@ -40,20 +40,77 @@ before the cast, as the trainer's ``device_preproc`` does: with
 ``ops/crop_resize_cuda.device_crop`` a video predictor serves full decoded
 frames and lip boxes, the crop kernel cutting the lips on the card.
 
-Not ported yet (ROADMAP.md): data-parallel serving, graph export.
+A checkpoint is read memory-mapped and only its ``state`` is touched
+(Adam's moments stay on disk); the model is built on the ``meta`` device and
+takes the checkpoint's tensors as they are (``load_state_dict(assign=True)``),
+then moves to the card from pinned memory. A checkpoint that names its
+label space (``classes``, written by the port's trainer) sizes the head and
+names the served words; an older one falls back to ``dataset.num_classes``
+and the words under ``dataset.root_dir``. Request lips load through the
+threaded native ``.npy`` loader.
+
+- ``load_test``: p50/p90/p99 request latency and clips/s of a resident
+  ``Predictor`` under concurrent client threads.
+- ``export_pipeline`` (CLI ``--export PATH.pt2``): the inference graph of a
+  checkpoint through ``torch.export``, saved with ``torch.export.save`` (the
+  counterpart of the JAX package's StableHLO export).
+
+Not ported yet (ROADMAP.md): data-parallel serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import functools
+import itertools
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from multimodal_lipread_torch.train.checkpoint import load_checkpoint, load_module_state
 from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
+
+
+def read_checkpoint(ckpt_path: str) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Optional[List[str]]]:
+    """A checkpoint's ``state`` (``{params, batch_stats, ...}``) and its
+    ``classes`` (``None`` where it names none), read memory-mapped: only the
+    tensors a caller touches are read from disk."""
+    tree = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    return tree["state"], tree.get("classes")
+
+
+def assign_state(model: nn.Module, state: Dict[str, Dict[str, torch.Tensor]], device: str) -> nn.Module:
+    """``{params, batch_stats}`` into ``model`` (built on any device, the
+    ``meta`` device included): the module takes the state's tensors as they
+    are (``assign=True``; each parameter keeps its ``requires_grad``), every
+    name must match, and the model moves to ``device``, on a card from
+    pinned memory."""
+    tensors = {**state["params"], **state["batch_stats"]}
+    if torch.device(device).type == "cuda":
+        tensors = {k: v.pin_memory() for k, v in tensors.items()}
+    model.load_state_dict(tensors, strict=True, assign=True)
+    left = [n for n, t in itertools.chain(model.named_parameters(), model.named_buffers()) if t.is_meta]
+    if left:
+        raise ValueError(f"the checkpoint leaves {len(left)} tensors of the model unset, e.g. {left[0]}")
+    model.to(device, non_blocking=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(torch.device(device)).synchronize()
+    return model
+
+
+def load_model(build: Callable[[Optional[int]], nn.Module], ckpt_path: str,
+               device: str) -> Tuple[nn.Module, Optional[List[str]]]:
+    """``build(num_classes)`` on the ``meta`` device, at the checkpoint's
+    class count where it names its classes (``None`` otherwise), with the
+    checkpoint's state on ``device`` (:func:`assign_state`); returns the
+    model and the checkpoint's classes."""
+    state, classes = read_checkpoint(ckpt_path)
+    with torch.device("meta"):
+        model = build(len(classes) if classes else None)
+    return assign_state(model, state, device), classes
 
 
 def _cast(t: torch.Tensor) -> torch.Tensor:
@@ -93,9 +150,11 @@ class Predictor:
         cls, model: nn.Module, ckpt_path: str, batch_size: int = 32, device: str = "cuda",
         device_preproc: Optional[Callable[..., tuple]] = None,
     ) -> "Predictor":
-        """Restore a checkpoint (``{epoch, state, val_acc, ...}``) into ``model``."""
-        load_module_state(model, load_checkpoint(ckpt_path)["state"])
-        return cls(model=model, batch_size=batch_size, device=device, device_preproc=device_preproc)
+        """Restore a checkpoint (``{epoch, state, val_acc, ...}``) into
+        ``model``, which may be built on the ``meta`` device
+        (:func:`assign_state`)."""
+        return cls(model=assign_state(model, read_checkpoint(ckpt_path)[0], device), batch_size=batch_size,
+                   device=device, device_preproc=device_preproc)
 
     def predict_logits(self, *inputs: np.ndarray) -> np.ndarray:
         """Any-N inputs → (N, num_classes) float32 logits via fixed-size batches."""
@@ -121,16 +180,82 @@ class Predictor:
         return np.argmax(self.predict_logits(*inputs), axis=-1)
 
 
-def build_audio_model(config: Any) -> nn.Module:
+def load_test(
+    predictor: Predictor,
+    inputs: Sequence[np.ndarray],
+    num_threads: int = 4,
+    requests_per_thread: int = 25,
+) -> Dict[str, Any]:
+    """Concurrent requests to one resident ``Predictor`` on one card.
+
+    ``num_threads`` client threads each send ``requests_per_thread``
+    requests of ``inputs`` back to back. A request is a whole
+    ``predict_logits`` call: padding, the host-to-device copy, the
+    predictor's ``device_preproc``, the forward and the logits copied back
+    to the host, which synchronizes it; so its latency includes queueing
+    behind the other clients on the card. One request warms up before the
+    clock starts. Returns the latency percentiles (ms; the p-th is
+    ``sorted[min(n - 1, round(p / 100 * (n - 1)))]``), the largest, and the
+    clips per second over the wall time."""
+    latencies: List[List[float]] = [[] for _ in range(num_threads)]
+    barrier = threading.Barrier(num_threads + 1)
+
+    def client(tid: int) -> None:
+        barrier.wait()
+        for _ in range(requests_per_thread):
+            t0 = time.perf_counter()
+            predictor.predict_logits(*inputs)
+            latencies[tid].append(time.perf_counter() - t0)
+
+    # the precision is set once here for every thread: a per-request
+    # model_precision on several threads would restore the process setting
+    # under another thread's forward
+    with model_precision(compute_dtype(predictor.model)):
+        predictor.predict_logits(*inputs)
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(num_threads)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        t_start = time.perf_counter()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t_start
+    return latency_summary(np.concatenate([np.asarray(lat) for lat in latencies]), int(inputs[0].shape[0]),
+                           num_threads, wall)
+
+
+def latency_summary(latencies_s: np.ndarray, batch: int, num_threads: int, wall_s: float) -> Dict[str, Any]:
+    """``load_test``'s result from the request latencies (seconds)."""
+    lats = np.sort(np.asarray(latencies_s, np.float64))
+    n = len(lats)
+
+    def pct(p: float) -> float:
+        return float(lats[min(n - 1, int(round(p / 100 * (n - 1))))])
+
+    return {
+        "num_threads": num_threads,
+        "requests": n,
+        "batch": batch,
+        "throughput_clips_per_s": batch * n / wall_s,
+        "p50_ms": pct(50) * 1e3,
+        "p90_ms": pct(90) * 1e3,
+        "p99_ms": pct(99) * 1e3,
+        "max_ms": float(lats[-1]) * 1e3,
+        "wall_s": wall_s,
+    }
+
+
+def build_audio_model(config: Any, num_classes: Optional[int] = None) -> nn.Module:
     """The audio model exactly as its training pipeline builds it, wrapped
     in ``WaveToLogMel`` when ``dataset.streaming`` is set (the model then
-    takes raw waveforms and its parameters nest under ``model.``)."""
+    takes raw waveforms and its parameters nest under ``model.``); the head
+    has ``num_classes`` outputs, ``dataset.num_classes`` where not given."""
     from multimodal_lipread_torch.models.audio import get_audio_model
     from multimodal_lipread_torch.pipelines.common import model_dtype
 
     input_size = config.get("dataset.input_size", 117)
     model = get_audio_model(
-        config.get("model.name", "resnet"), config.get("dataset.num_classes", 4),
+        config.get("model.name", "resnet"), num_classes or config.get("dataset.num_classes", 4),
         input_size=input_size,
         version=config.get("model.version", 16),
         use_batchnorm=config.get("model.use_batchnorm", True),
@@ -154,17 +279,7 @@ def predict_audio_clips(
     (``WaveToLogMel``); otherwise the features are computed first
     (``compute_logmel_features``). Both run the log-mel kernel on a card.
     """
-    from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips
     from multimodal_lipread_torch.pipelines.common import compute_logmel_features, decode_waveforms
-
-    model = build_audio_model(config)
-    classes: Optional[List[str]] = None
-    root = config.get("dataset.root_dir")
-    if root:
-        try:
-            classes = scan_glips(root, exts=AUDIO_EXTS).classes
-        except FileNotFoundError:
-            pass
 
     waves = decode_waveforms(list(clip_paths))
     if bool(config.get("dataset.streaming", False)):
@@ -173,14 +288,15 @@ def predict_audio_clips(
         inputs = compute_logmel_features(
             waves, input_size=config.get("dataset.input_size", 117), device=device
         )
-    predictor = Predictor.from_checkpoint(model, ckpt_path, batch_size, device=device)
-    logits = predictor.predict_logits(inputs)
+    model, classes = load_model(functools.partial(build_audio_model, config), ckpt_path, device)
+    classes = classes or _class_names(config)
+    logits = Predictor(model=model, batch_size=batch_size, device=device).predict_logits(inputs)
     preds = np.argmax(logits, axis=-1)
     return [
         {
             "path": path,
             "prediction": int(p),
-            "word": classes[int(p)] if classes else None,
+            "word": classes[int(p)] if classes and int(p) < len(classes) else None,
             "logits": [float(x) for x in row],
         }
         for path, p, row in zip(clip_paths, preds, logits)
@@ -201,19 +317,21 @@ _PIPELINE_INPUTS = {
 }
 
 
-def build_model(pipeline: str, config: Any) -> nn.Module:
+def build_model(pipeline: str, config: Any, num_classes: Optional[int] = None) -> nn.Module:
     """The model exactly as the pipeline's training entry builds it (a
     different knob gives other parameter names, and the checkpoint does
-    not load)."""
+    not load), with ``num_classes`` outputs: a checkpoint's class count
+    where it names its classes, else ``dataset.num_classes``."""
     from multimodal_lipread_torch.pipelines.common import model_dtype
 
+    num_classes = num_classes or config.get("dataset.num_classes", 4)
     if pipeline == "audio":
         raise ValueError("audio uses predict_audio_clips (streaming-aware)")
     if pipeline == "video":
         from multimodal_lipread_torch.models.video import get_video_model
 
         return get_video_model(
-            config.get("model.name", "resnet_lstm"), config.get("dataset.num_classes", 4),
+            config.get("model.name", "resnet_lstm"), num_classes,
             dtype=model_dtype(config),
             resnet_version=config.get("model.resnet_version", 18),
             shufflenet_version=config.get("model.shufflenet_version", "0.5x"),
@@ -224,29 +342,29 @@ def build_model(pipeline: str, config: Any) -> nn.Module:
         from multimodal_lipread_torch.models.audio_video import get_av_model
 
         return get_av_model(
-            config.get("model.name", "middle_fusion_mobilenet"), config.get("dataset.num_classes", 4),
+            config.get("model.name", "middle_fusion_mobilenet"), num_classes,
             input_size=config.get("dataset.audio_input_size", 117), dtype=model_dtype(config),
         )
     if pipeline == "cues":
         from multimodal_lipread_torch.models.cues import get_cue_model
 
-        return get_cue_model(config.get("model.name", "dense_nn"), config.get("dataset.num_classes", 4),
+        return get_cue_model(config.get("model.name", "dense_nn"), num_classes,
                              dtype=model_dtype(config), bert_size=config.get("model.bert_size", "tiny"))
     if pipeline == "audio_cues":
         from multimodal_lipread_torch.models.audio_cues import get_audio_cues_model
 
         return get_audio_cues_model(config.get("model.name", "middle_fusion_mobile"),
-                                    config.get("dataset.num_classes", 4), dtype=model_dtype(config))
+                                    num_classes, dtype=model_dtype(config))
     if pipeline == "cues_video":
         from multimodal_lipread_torch.models.cues_video import get_cues_video_model
 
         name = config.get("train.model_name") or config.get("model.name") or "middle_fusion_mobile"
-        return get_cues_video_model(name, config.get("dataset.num_classes", 4), dtype=model_dtype(config))
+        return get_cues_video_model(name, num_classes, dtype=model_dtype(config))
     if pipeline == "audio_cues_video":
         from multimodal_lipread_torch.models.audio_cues_video import get_triple_model
 
         name = config.get("train.model_name") or config.get("model.name") or "late_fusion_mobile"
-        return get_triple_model(name, config.get("dataset.num_classes", 4), dtype=model_dtype(config))
+        return get_triple_model(name, num_classes, dtype=model_dtype(config))
     raise ValueError(f"unknown pipeline '{pipeline}' (one of {PIPELINES})")
 
 
@@ -315,16 +433,33 @@ def _featurize_modalities(pipeline: str, config: Any, groups: Sequence[Sequence[
         elif code == "c":
             inputs.append(_cue_features(pipeline, config, paths))
         else:
-            lips = np.stack([np.load(p) for p in paths])
-            if lips.dtype != np.uint8:
-                lips = np.clip(lips * 255.0 if lips.max() <= 1.0 else lips, 0, 255).astype(np.uint8)
-            inputs.append(lips)
+            inputs.append(load_lips(paths))
     return tuple(inputs)
 
 
+def load_lips(paths: Sequence[str]) -> np.ndarray:
+    """Lip-region ``.npy`` files → one uint8 array (N, *shape), through the
+    threaded native loader (``data/native_io.load_npy_u8_batch``); where it
+    refuses a file (not uint8, or another shape than the first file's) the
+    files are loaded with ``np.load`` and a float file in [0, 1] is scaled
+    to uint8."""
+    from multimodal_lipread_torch.data.native_io import load_npy_u8_batch
+
+    shape = np.load(paths[0], mmap_mode="r").shape
+    lips, failed = load_npy_u8_batch(paths, shape, scale=1.0)
+    if failed < 0:
+        return lips.astype(np.uint8)
+    lips = np.stack([np.load(p) for p in paths])
+    if lips.dtype != np.uint8:
+        lips = np.clip(lips * 255.0 if lips.max() <= 1.0 else lips, 0, 255).astype(np.uint8)
+    return lips
+
+
 def _class_names(config: Any) -> Optional[List[str]]:
-    """The sorted word list under ``dataset.root_dir``, from its audio
-    clips or ``.npy`` files, where there are any."""
+    """For a checkpoint that names no classes: the sorted word list under
+    ``dataset.root_dir``, from its audio clips or ``.npy`` files, where
+    there are any (the label space of a pipeline whose words are all the
+    corpus's)."""
     from multimodal_lipread_torch.data.glips import AUDIO_EXTS, scan_glips
 
     root = config.get("dataset.root_dir")
@@ -348,11 +483,11 @@ def predict_clips(
     featurize → classify (see ``_featurize_modalities`` for the groups)."""
     if pipeline == "audio":
         return predict_audio_clips(config, ckpt_path, [g[0] for g in groups], batch_size, device=device)
-    model = build_model(pipeline, config)
     inputs = _featurize_modalities(pipeline, config, groups, device=device)
-    logits = Predictor.from_checkpoint(model, ckpt_path, batch_size, device=device).predict_logits(*inputs)
+    model, classes = load_model(functools.partial(build_model, pipeline, config), ckpt_path, device)
+    logits = Predictor(model=model, batch_size=batch_size, device=device).predict_logits(*inputs)
     preds = np.argmax(logits, axis=-1)
-    classes = _class_names(config)
+    classes = classes or _class_names(config)
     return [
         {
             "paths": list(g),
@@ -362,6 +497,84 @@ def predict_clips(
         }
         for g, p, row in zip(groups, preds, logits)
     ]
+
+
+def export_program(model: nn.Module, example_inputs: Sequence[np.ndarray]) -> "torch.export.ExportedProgram":
+    """``model``'s eval-mode forward traced by ``torch.export`` at the
+    example inputs' shapes and dtypes, on the model's device. A
+    ``WaveToLogMel`` frontend stays in the graph as the log-mel kernel's
+    operator ``torch.ops.mlt.log_mel`` (``ops/logmel_cuda.py``), so the
+    exported program launches the kernel on a card."""
+    device = next(model.parameters()).device
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in example_inputs)
+    return torch.export.export(model.eval(), args)
+
+
+def export_pipeline(
+    config: Any, ckpt_path: str, pipeline: str, out_path: str, batch_size: int = 32, device: str = "cuda",
+) -> "torch.export.ExportedProgram":
+    """A checkpoint's fixed-batch inference graph (:func:`export_program`)
+    saved to ``out_path`` with ``torch.export.save``; returns the program.
+
+    As the JAX package's StableHLO export: a ``dataset.streaming`` audio
+    checkpoint exports ``WaveToLogMel`` over raw (B, 20000) waveforms, any
+    other audio one over (B, 80, input_size) log-mels; lip inputs are
+    float32 in [0, 1] (the caller divides uint8 lips by 255); the TF-IDF
+    cue model is refused. The parameters stay on ``device``.
+
+    Load it with ``torch.export.load(out_path).module()`` in a process that
+    has imported ``multimodal_lipread_torch.ops.logmel_cuda`` (which
+    registers the log-mel operator), and call it under
+    ``utils.precision.model_precision`` for the model's own precision."""
+    from multimodal_lipread_torch.data.audio_io import TARGET_SAMPLES
+
+    if pipeline == "audio":
+        if bool(config.get("dataset.streaming", False)):
+            example: tuple = (np.zeros((batch_size, TARGET_SAMPLES), np.float32),)
+        else:
+            example = (np.zeros((batch_size, 80, config.get("dataset.input_size", 117)), np.float32),)
+        build = functools.partial(build_audio_model, config)
+    else:
+        example = _example_inputs(pipeline, config, batch_size)
+        build = functools.partial(build_model, pipeline, config)
+    example = tuple(a.astype(np.float32) / 255.0 if a.dtype == np.uint8 else a for a in example)
+    program = export_program(load_model(build, ckpt_path, device)[0], example)
+    torch.export.save(program, out_path)
+    return program
+
+
+def _example_inputs(pipeline: str, config: Any, batch: int) -> tuple:
+    """Zeros in the model's input shapes and dtypes (uint8 lips)."""
+    from multimodal_lipread_torch.data.cues import EMBED_DIMS, canonical_embed_model
+
+    mel = np.zeros((batch, 80, config.get(_AUDIO_INPUT_KEY.get(pipeline, "dataset.input_size"), 117)), np.float32)
+    lips = np.zeros((batch, config.get("dataset.sequence_length", 29), 44, 44, 3), np.uint8)
+    if pipeline == "cues":
+        from multimodal_lipread_torch.models.cues import cue_embedding_kind
+
+        kind = cue_embedding_kind(config.get("model.name", "dense_nn"))
+        if kind == "tfidf":
+            raise ValueError(
+                "the 'linear' (TF-IDF) cue model fits its vectorizer on the training corpus and cannot be "
+                "exported from a checkpoint alone — use an embedding-based cue model"
+            )
+        if kind == "bert_tok":
+            cue = np.zeros((batch, 32), np.int32)
+        elif kind.endswith("_tok"):
+            cue = np.zeros((batch, 32, EMBED_DIMS[kind[:-4]]), np.float32)
+        else:
+            cue = np.zeros((batch, EMBED_DIMS[kind]), np.float32)
+    else:
+        cue = np.zeros((batch, EMBED_DIMS[canonical_embed_model(config.get("dataset.embed_model", "mpnet"))]),
+                       np.float32)
+    return {
+        "video": (lips,),
+        "audio_video": (mel, lips),
+        "cues": (cue,),
+        "audio_cues": (mel, cue),
+        "cues_video": (cue, lips),
+        "audio_cues_video": (mel, cue, lips),
+    }[pipeline]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -378,13 +591,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    parser.add_argument("clips", nargs="+",
+    parser.add_argument("--export", metavar="PATH.pt2",
+                        help="instead of classifying, save the inference graph (torch.export) to PATH")
+    parser.add_argument("clips", nargs="*",
                         help="files to classify: WAV clips (audio), lip-region .npy files (video), "
                              "comma-separated 'clip.wav,clip.npy' groups (audio_video), cue .txt files (cues), "
                              "'clip.wav,cue.txt' groups (audio_cues), 'cue.txt,lips.npy' groups (cues_video) "
                              "or 'clip.wav,cue.txt,lips.npy' groups (audio_cues_video)")
     args = parser.parse_args(argv)
     config = load_config(args.config)
+    if args.export:
+        export_pipeline(config, args.checkpoint, args.pipeline, args.export, args.batch_size, device=args.device)
+        print(json.dumps({"exported": args.export, "pipeline": args.pipeline}))
+        return
+    if not args.clips:
+        parser.error("no clips given (and no --export)")
     results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],
                             args.batch_size, device=args.device)
     print(json.dumps(results, indent=2))

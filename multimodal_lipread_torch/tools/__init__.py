@@ -1,1 +1,2 @@
-"""Studies of the port's kernels that run on the CPU."""
+"""Offline tools (the WAV mirror, the cue sanitizer) and studies of the
+port's kernels that run on the CPU."""

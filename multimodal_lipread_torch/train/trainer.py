@@ -175,6 +175,9 @@ class TrainerConfig:
     param_partition_rules: Tuple[Any, ...] = ()
     # ``(*inputs) -> tuple(inputs)`` on the device batch before the cast
     device_preproc: Optional[Callable[..., tuple]] = None
+    # the words of the label space, by index: written into every checkpoint
+    # as ``classes``, where serving reads them
+    class_names: Optional[Tuple[str, ...]] = None
 
 
 # TrainerConfig knobs of the JAX trainer that the port does not run, with
@@ -769,7 +772,12 @@ class Trainer:
             **self._scheduler_fields(),
             "best_val_acc": float(best_val_acc),
             "dropout_rng": self.dropout_generator.get_state(),
+            **self._classes_field(),
         }
+
+    def _classes_field(self) -> Dict[str, Any]:
+        names = self.config.class_names
+        return {} if names is None else {"classes": list(names)}
 
     def _host_snapshot(self) -> Dict[str, Any]:
         """The trainer's state on the host: ``state`` as a checkpoint holds
@@ -956,7 +964,7 @@ class Trainer:
                 save_checkpoint(rolling_path, {
                     "epoch": epoch - 1, "state": snap["state"], "val_acc": float(best_val_acc),
                     **self._scheduler_fields(), "best_val_acc": float(best_val_acc),
-                    "dropout_rng": snap["dropout_rng"],
+                    "dropout_rng": snap["dropout_rng"], **self._classes_field(),
                 })
                 if progress:
                     progress(f"Preempted during epoch {epoch}; checkpoint saved to {rolling_path} "

@@ -1,5 +1,7 @@
 """Per-model loss and accuracy plots from the trainer's CSV logs
-(counterpart of the JAX package's ``utils/visualize.py::plot_logs``).
+(counterpart of the JAX package's ``utils/visualize.py``: ``plot_logs`` and
+its CLI, ``python -m multimodal_lipread_torch.utils.visualize --metrics-dir
+<dir>``).
 
 matplotlib is imported inside :func:`plot_logs`, so importing this module
 needs it nowhere; ``pipelines.common.maybe_plot`` reports a missing
@@ -57,3 +59,19 @@ def plot_logs(metrics_dir: str, plots_dir: Optional[str] = None) -> List[str]:
             plt.close(fig)
             written.append(out)
     return written
+
+
+def main(argv=None) -> None:
+    """``python -m multimodal_lipread_torch.utils.visualize --metrics-dir <dir> [--plots-dir <dir>]``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Plot training-log CSVs")
+    parser.add_argument("--metrics-dir", required=True)
+    parser.add_argument("--plots-dir")
+    args = parser.parse_args(argv)
+    written = plot_logs(args.metrics_dir, args.plots_dir)
+    print(f"Wrote {len(written)} plots")
+
+
+if __name__ == "__main__":
+    main()

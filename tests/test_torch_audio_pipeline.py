@@ -143,13 +143,22 @@ def test_main_fit_learns_and_its_checkpoint_serves(tmp_path):
     assert len(served) == len(clips) and all(np.isfinite(r["logits"]).all() for r in served)
 
 
-def test_main_refuses_what_is_not_ported(tmp_path):
-    for key, value, item in (("dataset.loader_backend", "native", "#11"),):
-        cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
+def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    # dataset.loader_backend: native is ported; an .m4a clip needs the WAV
+    # mirror, and without ffmpeg the mirror raises before any training
+    # (tests/test_torch_native_stream.py trains the native branch)
+    root = make_synthetic_glips(str(tmp_path / "GLips_4"), clips_per_split=1, seed=2)
+    clip = scan_glips(root).by_split("train")[0].path
+    os.replace(clip, clip[: -len(".wav")] + ".m4a")
+    monkeypatch.setenv("PATH", str(tmp_path / "no_tools"))
+    for key, value, item in (("dataset.loader_backend", "native", "ffmpeg is not installed"),):
+        cfg = _cfg(root, str(tmp_path / "run"))
         cfg.set("dataset.streaming", True)
+        cfg.set("dataset.wav_cache_dir", str(tmp_path / "mirror"))
         cfg.set(key, value)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(RuntimeError, match=item):
             paudio_pipeline.main(cfg, device="cpu")
+    assert not os.path.exists(tmp_path / "run")
 
 
 @pytest.mark.slow

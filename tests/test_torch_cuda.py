@@ -13,7 +13,10 @@ log-mel kernel; the lip-crop kernel against its plain version bit for bit,
 device-crop train steps against plain-crop ones, CUDA-graphed train steps
 against eager ones (dropout on), capturable optimizer checkpoints resuming
 exactly and loading into a host-batching trainer and back, and ``remat``
-refused under graphs.
+refused under graphs; the log-mel operator ``mlt::log_mel`` launching the
+kernel, an exported (``torch.export``) wave model launching it, and
+``serving.load_test`` with the device crop launching the crop kernel once a
+request.
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -658,3 +661,45 @@ def test_device_crop_train_steps_equal_plain_crop_steps(cuda_device, tmp_path):
     finally:
         torch.backends.cudnn.deterministic = False
     assert losses[0] == losses[1]
+
+
+@pytest.mark.cuda
+def test_the_log_mel_operator_is_the_kernel_on_the_card(cuda_device):
+    wave = _waves(3, cuda_device, seed=4)
+    before = logmel_cuda.launch_count
+    got = torch.ops.mlt.log_mel(wave, True)
+    assert logmel_cuda.launch_count == before + 1 and got.is_contiguous()
+    torch.testing.assert_close(got, log_mel_reference(wave, True), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_an_exported_wave_model_launches_the_kernel(cuda_device, tmp_path):
+    from multimodal_lipread_torch import serving
+
+    torch.manual_seed(0)
+    net = WaveToLogMel(VGGWithLSTMClassifier(4, version=11, lstm_hidden=16), 117).to(cuda_device).eval()
+    wave = _waves(4, cuda_device, seed=6)
+    program = serving.export_program(net, (wave.cpu().numpy(),))
+    assert "mlt.log_mel.default" in {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    torch.export.save(program, str(tmp_path / "net.pt2"))
+    module = torch.export.load(str(tmp_path / "net.pt2")).module()
+    before = logmel_cuda.launch_count
+    with torch.inference_mode(), model_precision(torch.float32):
+        got = module(wave)
+        want = net(wave)
+    assert logmel_cuda.launch_count == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_load_test_with_the_device_crop_launches_the_kernel(cuda_device):
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+
+    x, boxes = _frames_and_boxes(2 * 29, cuda_device, seed=7, h=96, w=96)
+    frames, boxes = x.reshape(2, 29, 96, 96, 3).cpu().numpy(), boxes.reshape(2, 29, 4).cpu().numpy()
+    predictor = serving.Predictor(get_video_model("cnn", 4), batch_size=2, device="cuda", device_preproc=device_crop)
+    before = crop_resize_cuda.launch_count
+    r = serving.load_test(predictor, (frames, boxes), num_threads=3, requests_per_thread=4)
+    assert crop_resize_cuda.launch_count == before + 13 and r["requests"] == 12 and r["p99_ms"] > 0

@@ -322,3 +322,30 @@ def test_serving_cli_prints_both_pipelines_predictions(corpus, tmp_path, capsys)
         *serving._featurize_modalities("cues_video", cfg, groups, device="cpu"))
     assert [r["prediction"] for r in out] == want.tolist() and len(out) == 3
     assert type(serving.build_model("audio_cues_video", Config.from_dict({}))).__name__ == "MultimodalAttentionLate"
+
+
+def test_served_words_come_from_the_trained_label_space(split_labels, tmp_path):
+    # cues_video trains on the aligned train words, not on the corpus's:
+    # the checkpoint names them, and serving reads its head width and its
+    # words from it (ROADMAP.md Queue 3 #12)
+    base = str(tmp_path / "run")
+    cfg = _cfg(split_labels, base, "cues_video", epochs=1)
+    cfg.set("dataset.num_classes", 3)
+    best = pcv_pipeline.main(cfg, device="cpu")["best_checkpoint"]
+    tree = torch.load(best, weights_only=True)
+    assert tree["classes"] == ["bereits", "cirka", "dabei"]
+    serve_cfg = Config.from_dict({"dataset": {"root_dir": split_labels, "embed_model": "mpnet",
+                                              "cache_dir": os.path.join(base, "cache")},
+                                  "model": {"name": "early_fusion_mobile"}})  # no num_classes
+    groups = _groups(split_labels, str(tmp_path / "texts"), False)
+    served = serving.predict_clips(serve_cfg, best, "cues_video", groups, batch_size=4, device="cpu")
+    assert len(served) == len(groups) > 0 and all(len(r["logits"]) == 3 for r in served)
+    assert all(r["word"] == tree["classes"][r["prediction"]] for r in served)
+    # a checkpoint that names no classes falls back to the corpus's words
+    del tree["classes"]
+    save_checkpoint(str(tmp_path / "old.pt"), tree)
+    serve_cfg.set("dataset.num_classes", 3)
+    old = serving.predict_clips(serve_cfg, str(tmp_path / "old.pt"), "cues_video", groups, batch_size=4,
+                                device="cpu")
+    assert [r["logits"] for r in old] == [r["logits"] for r in served]
+    assert all(r["word"] == ["abend", "bereits", "cirka", "dabei"][r["prediction"]] for r in old)

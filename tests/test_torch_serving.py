@@ -192,12 +192,16 @@ def test_wav_roundtrip_pads_and_truncates(tmp_path, n):
     assert not got[k:].any()
 
 
-def test_load_waveform_refuses_what_needs_ffmpeg(tmp_path):
-    with pytest.raises(NotImplementedError, match="ffmpeg"):
+def test_load_waveform_refuses_what_needs_ffmpeg(tmp_path, monkeypatch):
+    # without ffmpeg on PATH, a compressed clip and an off-rate WAV raise as
+    # in the JAX package (tests/test_torch_audio_io.py runs them through a
+    # stand-in ffmpeg)
+    monkeypatch.setenv("PATH", str(tmp_path / "no_tools"))
+    with pytest.raises(RuntimeError, match="requires ffmpeg"):
         audio_io.load_waveform(str(tmp_path / "x.m4a"))
     path = str(tmp_path / "slow.wav")
     audio_io.write_wav(path, np.zeros(100, np.float32), sample_rate=8000)
-    with pytest.raises(NotImplementedError, match="resampling"):
+    with pytest.raises(RuntimeError, match="needs resampling but ffmpeg is unavailable"):
         audio_io.load_waveform(path)
 
 

@@ -260,11 +260,19 @@ def test_main_resumes_exactly_with_lstm_dropout(lip_corpus, tmp_path):
 
 @pytest.mark.parametrize("key, value, item", [("dataset.loader_backend", "native", "#11")])
 def test_main_refuses_what_is_not_ported(tmp_path, key, value, item):
-    cfg = _cfg(str(tmp_path), str(tmp_path / "run"))
-    cfg.set("dataset.streaming", True)
-    cfg.set(key, value)
-    with pytest.raises(NotImplementedError, match=item):
-        pvideo_pipeline.main(cfg, device="cpu")
+    # dataset.loader_backend: native (ROADMAP.md Queue 1 #11) is ported: the
+    # streamed .npy lips through the C++ prefetcher train a step of the cnn to
+    # the grain backend's loss (the same records in the same order)
+    root = make_synthetic_glips(str(tmp_path / "GLips_4"), clips_per_split=2, seed=4, with_audio=False,
+                                with_lip_regions=True)
+    losses = {}
+    for backend in ("grain", value):
+        cfg = _cfg(root, str(tmp_path / backend), epochs=1)
+        cfg.set("dataset.streaming", True)
+        cfg.set(key, backend)
+        losses[backend] = pvideo_pipeline.main(cfg, device="cpu")["history"][0]
+    for k in ("train_loss", "val_loss", "test_loss"):
+        np.testing.assert_allclose(losses[value][k], losses["grain"][k], rtol=1e-6, err_msg=k)
 
 
 # --- serving -----------------------------------------------------------------
