@@ -182,17 +182,29 @@ a non-zero exit:
    audio_cues_video models (B=8 on mel + cue + lips), their frozen
    parameters frozen.
 
-20. crop-kernel (after 3): the lip-crop kernel (``csrc/crop_resize.cu``)
-   against ``crop_resize_pad_reference`` on the card, on frames of
-   256 x 256 x 3 and boxes from ``--seed`` (failed detections, a negative
-   width, edge-touching, whole-frame, square and exact 44 x 44 boxes among
-   them) at 16 x 29 and 32 x 29 frames, uint8 and normalized: the largest
-   difference in uint8 LSB (at most 1; bit-equal expected) and the count of
-   differing values; its launch configuration, registers, shared memory
-   and spills; times of the kernel, the plain version and ``F.grid_sample``
-   over the same source coordinates (a partial yardstick) by CUDA events,
-   and the bound (output bytes plus the distinct 32-byte sectors of source
-   rows the gather needs, at the memory rate);
+20. crop-kernel (after 3): the lip-crop kernel (``csrc/crop_resize.cu``, a
+   cluster of blocks per frame) against ``crop_resize_pad_reference`` on
+   the card, on 6 sets of frames of 256 x 256 x 3 and boxes from
+   ``--seed`` (failed detections, a negative width, edge-touching,
+   whole-frame, square and exact 44 x 44 boxes among them) at 16 x 29 and
+   32 x 29 frames, uint8 and normalized: the largest difference in uint8
+   LSB (at most 1; bit-equal expected) and the count of differing values;
+   its launch configuration (threads, blocks a cluster, stage and shared
+   memory bytes, registers, spills, blocks per SM, resident clusters) and
+   ``-Xptxas -v``'s report; its device time by replaying a CUDA graph of
+   96 launches (cold: the launches rotate over the 6 sets, whose touched
+   sectors exceed the 50 MB L2; warm: one set), ``torch.profiler``'s mean
+   kernel time as a cross-check, its share of the bound (output bytes plus
+   the distinct 32-byte sectors of source rows the gather needs, at the
+   memory rate), the wrapper's time per call by CUDA events over
+   back-to-back calls and the host's microseconds a call; the kernel's
+   phases per block (``ops.crop_resize_cuda.phase_times``), also with 33
+   frames alone on the card, its time a frame with 4640 frames in one
+   launch (steady state), and a one-element kernel's graphed time (the
+   launch floor); other launches (blocks a cluster, threads, stage bytes),
+   cold, each held to the plain version; the plain version; and
+   ``F.grid_sample`` over the same source coordinates (a partial
+   yardstick) by the same cold graph replay;
 21. stream-train (after 5): ``pipelines.audio.main`` with
    ``dataset.streaming`` on [train]'s corpus, 1 epoch: the log-mel kernel
    launches at least once per train step (``WaveToLogMel`` in the
@@ -402,6 +414,16 @@ ZOO_AUDIO_BATCH, ZOO_VIDEO_BATCH, ZOO_CPU_ROWS, ZOO_ITERS = 32, 16, 4, 5
 CROP_FRAME, CROP_CLIPS = (256, 256), (16, 32)
 CROP_TRAIN_CLIPS, CROP_EPOCHS, CROP_PARITY_STEPS, CROP_PARITY_RTOL = 64, 2, 3, 1e-5
 CROP_BREAKDOWN_STEPS, CROP_REQUEST, CROP_REQUESTS = 3, 16, 4
+# [crop-kernel]: the timed launches rotate over frame sets whose touched
+# sectors (9.81 MB a set at 16 x 29 frames) exceed the 50 MB L2 together, as
+# a step finds its frames freshly copied to the card; launches captured in
+# one CUDA graph, and its replays
+CROP_COLD_SETS, CROP_GRAPH_LAUNCHES, CROP_GRAPH_REPLAYS = 6, 96, 5
+# [crop-kernel]: frames timed alone on the card (one for every 4 SMs)
+CROP_ALONE = 33
+# [crop-kernel]: other launches, timed beside the default one, cold, uint8
+# (blocks a cluster, threads a block, the cap on a block's staging bytes)
+CROP_LAUNCHES = ((1, 256, 20480), (2, 128, 16384), (2, 256, 20480), (4, 128, 17408), (8, 64, 16384))
 # [stream-train]: the streaming model's first-step loss against the
 # features-first model's (the log-mel kernel runs on the same clips in both)
 STREAM_RTOL = 1e-4
@@ -461,7 +483,7 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from multimodal_lipread_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -471,6 +493,7 @@ def phase_build() -> None:
         log("build", f"{r.name}: {r.seconds:.2f} s -> {os.path.relpath(r.path, REPO)}")
         for line in r.ptxas_lines():
             log("build", f"  {line}")
+    return results
 
 
 def stft_log_mel(wave: torch.Tensor, window: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
@@ -2371,12 +2394,79 @@ def crop_bound(frames_shape: tuple, boxes: torch.Tensor, normalize: bool) -> tup
     return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
-def phase_crop_kernel(seed: int, device_info: dict) -> dict:
+def graph_ms(calls: list, launches: int = CROP_GRAPH_LAUNCHES, replays: int = CROP_GRAPH_REPLAYS) -> tuple:
+    """(device ms per call, the graph): ``launches`` calls, taking the
+    functions of ``calls`` in turn, captured in one CUDA graph after a
+    warm-up on a side stream, and CUDA events around each of ``replays``
+    replays; the mean replay over ``launches``. The host's work per call is
+    captured away, so the number is the device's own."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / (replays * launches), graph
+
+
+def profiled_kernel_ms(graph, name: str):
+    """Mean device ms of the kernels named like ``name`` in one replay of
+    ``graph``, by ``torch.profiler`` (None where it recorded none)."""
+    events, _ = profiled(graph.replay)
+    spans = [e.time_range.end - e.time_range.start for e in device_activities(events) if name in e.name]
+    return sum(spans) / len(spans) * 1e-3 if spans else None
+
+
+def host_us_per_call(fn, iters: int = TIMING_ITERS) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the enqueue; the
+    card is synchronized before and after, outside the timing)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def crop_phases(times: dict) -> str:
+    """``ops.crop_resize_cuda.phase_times``' microseconds on one line."""
+    return (", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in times.items() if isinstance(v, tuple))
+            + f"; a block {times['block']:.2f}, last start {times['last_start']:.2f}, launch {times['launch']:.2f}")
+
+
+def crop_sets(gen: torch.Generator, rng: np.random.Generator, n: int) -> list:
+    """``CROP_COLD_SETS`` sets of ``n`` uint8 frames of ``CROP_FRAME`` x 3,
+    made on the card from ``gen``, each with its boxes from ``rng``."""
+    return [(torch.randint(0, 256, (n, *CROP_FRAME, 3), dtype=torch.uint8, device=DEVICE, generator=gen),
+             torch.from_numpy(crop_boxes(rng, n, *CROP_FRAME)).to(DEVICE)) for _ in range(CROP_COLD_SETS)]
+
+
+def phase_crop_kernel(seed: int, device_info: dict, ptxas: list) -> dict:
     """The crop kernel against its plain version on the card, at the frame
     counts of the device-crop train step (B = 16 and 32 clips of 29 frames
-    of 256 x 256 x 3), in both modes; launch configuration, times of the
-    kernel, the plain version and ``F.grid_sample`` over the same source
-    coordinates (a partial yardstick), and the bound."""
+    of 256 x 256 x 3), in both modes, on every frame set; its launch
+    configuration; its device time by graph replay, cold (the launches
+    rotate over ``CROP_COLD_SETS`` sets) and warm (one set), with
+    ``torch.profiler``'s mean kernel time as a cross-check; the wrapper's
+    time per call and the host's; ``F.grid_sample`` over the same source
+    coordinates (a partial yardstick) by the same cold graph replay; the
+    plain version; and the bound."""
     import torch.nn.functional as F
 
     from multimodal_lipread_torch.ops import crop_resize_cuda
@@ -2387,55 +2477,108 @@ def phase_crop_kernel(seed: int, device_info: dict) -> dict:
     )
 
     smi = device_info["smi"]
-    rng = np.random.default_rng(seed)
+    rng, gen = np.random.default_rng(seed), torch.Generator(device=DEVICE).manual_seed(seed)
     rows, max_lsb, failures = {}, 0.0, []
     for normalize in (False, True):
         cfg = crop_resize_cuda.launch_config(normalize=normalize)
-        log("crop-kernel", f"crop normalize={normalize} launch: one block of {cfg['threads']} threads per frame, "
-                           f"dynamic smem {cfg['dynamic_smem_bytes']} B + static {cfg['static_smem_bytes']} B, "
-                           f"{cfg['registers']} registers, {cfg['local_bytes']} B local (spills), "
-                           f"{cfg['blocks_per_sm']} blocks/SM")
+        log("crop-kernel", f"crop normalize={normalize} launch: " + ", ".join(f"{k} {v}" for k, v in cfg.items()))
+    for line in ptxas:
+        log("crop-kernel", f"  {line}")
     for clips in CROP_CLIPS:
         n = clips * 29
-        frames = torch.from_numpy(rng.integers(0, 256, (n, *CROP_FRAME, 3), dtype=np.uint8)).to(DEVICE)
-        boxes = torch.from_numpy(crop_boxes(rng, n, *CROP_FRAME)).to(DEVICE)
+        sets = crop_sets(gen, rng, n)
         for normalize in (False, True):
             kernel = crop_resize_cuda.crop_resize_pad_normalize if normalize else crop_resize_cuda.crop_resize_pad
             plain = crop_resize_pad_normalize_reference if normalize else crop_resize_pad_reference
-            got, want = kernel(frames, boxes), plain(frames, boxes)
-            torch.cuda.synchronize()
-            diff = (got.double() - want.double()).abs() * (255.0 if normalize else 1.0)
-            lsb, differing = float(diff.max()), int((diff > 0).sum())
+            lsb, differing, blank = 0.0, 0, True
+            for frames, boxes in sets:
+                got, want = kernel(frames, boxes), plain(frames, boxes)
+                torch.cuda.synchronize()
+                diff = (got.double() - want.double()).abs() * (255.0 if normalize else 1.0)
+                lsb, differing = max(lsb, float(diff.max())), differing + int((diff > 0).sum())
+                blank = blank and bool((got[:1] == 0).all()) and got.shape == (n, 44, 44, 3)
             max_lsb = max(max_lsb, lsb)
-            blank = bool((got[:1] == 0).all())  # frame 0 holds the failed detection
-            ok = lsb <= 1.0 + 1e-6 and blank and got.shape == (n, 44, 44, 3)
-            log("crop-kernel", f"crop B={clips} x 29 frames normalize={normalize}: max abs diff {lsb:.3g} LSB, "
-                               f"{differing} of {got.numel()} values differ, degenerate box blank: {blank} "
-                               f"(tolerance 1 LSB) {'ok' if ok else 'FAIL'}")
+            ok = lsb <= 1.0 + 1e-6 and blank
+            log("crop-kernel", f"crop B={clips} x 29 frames normalize={normalize}, {CROP_COLD_SETS} frame sets: "
+                               f"max abs diff {lsb:.3g} LSB, {differing} of {CROP_COLD_SETS * n * 44 * 44 * 3} "
+                               f"values differ, degenerate box blank: {blank} (tolerance 1 LSB) "
+                               f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append((clips, normalize, lsb))
-        ms = cuda_ms(lambda: crop_resize_cuda.crop_resize_pad(frames, boxes))
-        ms_norm = cuda_ms(lambda: crop_resize_cuda.crop_resize_pad_normalize(frames, boxes))
-        plain_ms = cuda_ms(lambda: crop_resize_pad_reference(frames, boxes), warmup=2, iters=10)
-        # the yardstick: one grid_sample over the same source coordinates, on
-        # a float NCHW copy of the frames made outside the timing
-        y0, _y1, wy, x0, _x1, wx, _in = source_coords(boxes, *CROP_FRAME)
-        sy, sx = (y0.float() + wy).expand(n, 44, 44), (x0.float() + wx).expand(n, 44, 44)
-        grid = torch.stack([sx / (CROP_FRAME[1] - 1) * 2 - 1, sy / (CROP_FRAME[0] - 1) * 2 - 1], -1)
-        nchw = frames.permute(0, 3, 1, 2).float().contiguous()
-        library_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", align_corners=True))
-        del nchw
-        bound, bound_by, nbytes = crop_bound(tuple(frames.shape), boxes, False)
-        bound_n, _, _ = crop_bound(tuple(frames.shape), boxes, True)
-        rows[clips] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                       "library_ms": library_ms}
-        log("crop-kernel", f"crop B={clips} x 29 frames of {CROP_FRAME[0]} x {CROP_FRAME[1]}: kernel {ms:.4f} ms "
-                           f"({100 * bound / ms:.1f} % of bound; normalize=True {ms_norm:.4f} ms, bound "
-                           f"{bound_n:.4f}) | plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}: "
-                           f"{nbytes / 1e6:.2f} MB of sectors, output and boxes) | F.grid_sample on float "
-                           f"NCHW frames {library_ms:.4f} ms (partial yardstick: no letterbox, pad or rounding) "
-                           f"| {smi}")
-        del frames
+            calls = [functools.partial(kernel, f, b) for f, b in sets]
+            cold, graph = graph_ms(calls)
+            prof = profiled_kernel_ms(graph, "crop_resize")
+            del graph
+            warm, _ = graph_ms(calls[:1])
+            wrapper = cuda_ms(calls[0])
+            host = host_us_per_call(calls[0])
+            measured = [crop_bound((n, *CROP_FRAME, 3), b, normalize) for _f, b in sets]
+            bound, bound_by = float(np.mean([m[0] for m in measured])), measured[0][1]
+            nbytes = float(np.mean([m[2] for m in measured]))
+            plain_ms = cuda_ms(functools.partial(plain, *sets[0]), warmup=2, iters=10)
+            if not normalize:
+                rows[clips] = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": bound,
+                               "bound_by": bound_by}
+            log("crop-kernel", f"crop B={clips} x 29 frames of {CROP_FRAME[0]} x {CROP_FRAME[1]} "
+                               f"normalize={normalize}: kernel device time by graph replay of "
+                               f"{CROP_GRAPH_LAUNCHES} launches, cold (over {CROP_COLD_SETS} frame sets) "
+                               f"{cold:.5f} ms ({100 * bound / cold:.1f} % of bound), warm (one set) {warm:.5f} ms "
+                               f"({100 * bound / warm:.1f} %); torch.profiler's mean kernel time, cold: "
+                               + (f"{prof:.5f} ms" if prof is not None else "not measured (no device activity)")
+                               + f" | wrapper per call (CUDA events over {TIMING_ITERS} back-to-back calls) "
+                               f"{wrapper:.5f} ms, host {host:.1f} us a call | plain {plain_ms:.4f} ms | bound "
+                               f"{bound:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of sectors, output and boxes, "
+                               f"mean over the sets) | {smi}")
+        tiny = torch.zeros(1, device=DEVICE)
+        floor_ms, graph = graph_ms([functools.partial(tiny.add_, 1)])
+        del graph
+        phases = crop_resize_cuda.phase_times(*sets[-1])
+        log("crop-kernel", f"crop B={clips} x 29 frames: phases of the default launch, us mean / max over the blocks "
+                           f"(one launch on the last frame set): {crop_phases(phases)} | a one-element torch kernel "
+                           f"by the same graph replay {floor_ms:.5f} ms (the launch floor) | {smi}")
+        if clips == CROP_CLIPS[0]:
+            # what holds the launch: a block's phases with the card to itself
+            # (one frame for every 4 SMs), and the issue rate in steady state
+            # (ten times the frames in one launch, so the waves overlap)
+            alone = crop_resize_cuda.phase_times(sets[0][0][:CROP_ALONE], sets[0][1][:CROP_ALONE])
+            many = torch.randint(0, 256, (10 * n, *CROP_FRAME, 3), dtype=torch.uint8, device=DEVICE, generator=gen)
+            many_boxes = torch.from_numpy(crop_boxes(rng, 10 * n, *CROP_FRAME)).to(DEVICE)
+            steady, graph = graph_ms([functools.partial(crop_resize_cuda.crop_resize_pad, many, many_boxes)],
+                                     launches=CROP_GRAPH_LAUNCHES // 8)
+            del graph, many, many_boxes
+            log("crop-kernel", f"crop, {CROP_ALONE} frames alone on the card: {crop_phases(alone)} | {10 * n} frames "
+                               f"in one launch: {steady:.5f} ms, {steady * 1e6 / (10 * n):.2f} ns a frame ("
+                               f"{steady * 1e3 / 10:.2f} us for {n} frames at that rate) | {smi}")
+        for cluster, threads, cap in CROP_LAUNCHES:
+            ms, graph = graph_ms([functools.partial(crop_resize_cuda.crop, f, b, cluster=cluster, threads=threads,
+                                                    stage_cap=cap) for f, b in sets])
+            del graph
+            cfg = crop_resize_cuda.launch_config(cluster=cluster, threads=threads, stage_cap=cap)
+            equal = all(torch.equal(crop_resize_cuda.crop(f, b, cluster=cluster, threads=threads, stage_cap=cap),
+                                    crop_resize_pad_reference(f, b)) for f, b in sets)
+            if not equal:
+                failures.append((clips, (cluster, threads, cap)))
+            phases = crop_resize_cuda.phase_times(*sets[-1], cluster=cluster, threads=threads, stage_cap=cap)
+            log("crop-kernel", f"crop B={clips} x 29 frames, launch {cluster} blocks x {threads} threads, stage "
+                               f"{cfg['stage_bytes']} B: cold {ms:.5f} ms ({100 * rows[clips]['bound_ms'] / ms:.1f} % "
+                               f"of bound) | {cfg['blocks_per_sm']} blocks/SM, {cfg['max_active_clusters']} clusters "
+                               f"resident, {cfg['registers']} registers; equal to the plain version on every set: "
+                               f"{equal} | phases: {crop_phases(phases)}")
+        # the yardstick: one grid_sample over the same source coordinates,
+        # on float NCHW copies of the frame sets made outside the timing
+        grids = []
+        for frames, boxes in sets:
+            y0, _y1, wy, x0, _x1, wx, _in = source_coords(boxes, *CROP_FRAME)
+            sy, sx = (y0.float() + wy).expand(n, 44, 44), (x0.float() + wx).expand(n, 44, 44)
+            grid = torch.stack([sx / (CROP_FRAME[1] - 1) * 2 - 1, sy / (CROP_FRAME[0] - 1) * 2 - 1], -1)
+            grids.append((frames.permute(0, 3, 1, 2).float().contiguous(), grid))
+        library_ms, graph = graph_ms([functools.partial(F.grid_sample, x, g, mode="bilinear", align_corners=True)
+                                      for x, g in grids])
+        del graph, grids
+        rows[clips]["library_ms"] = library_ms
+        log("crop-kernel", f"crop B={clips} x 29 frames: F.grid_sample on float NCHW frames by the same cold graph "
+                           f"replay {library_ms:.5f} ms (partial yardstick: no letterbox, pad or rounding) | {smi}")
+        del sets
     if failures:
         raise SystemExit(f"crop kernel disagrees with its plain version: {failures}")
     return {"rows": rows, "max_abs_err": max_lsb}
@@ -3226,10 +3369,10 @@ def main(argv=None) -> int:
         return 1
     t_run = time.perf_counter()
     device_info = timed("device", phase_device)
-    timed("build", phase_build)
+    built = timed("build", phase_build)
     seed = args.seed
     kernel = timed("kernel", phase_kernel, seed)
-    crop = timed("crop-kernel", phase_crop_kernel, seed, device_info)
+    crop = timed("crop-kernel", phase_crop_kernel, seed, device_info, built["crop_resize"].ptxas_lines())
     launches = timed("serve", phase_serve, seed, device_info)
     train = timed("train", phase_train, seed, device_info)
     launches += train["launches"]

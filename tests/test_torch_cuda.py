@@ -9,8 +9,11 @@ on padded ids and an audio_cues train step against the CPU, int32 ids
 through the ``Predictor``), and the frozen encoders of the audio_cues_video
 models (frozen parameters bit-equal over card steps, ``frozen_bn_eval``
 through ``model.train()``) and that pipeline's featurization through the
-log-mel kernel; the lip-crop kernel against its plain version bit for bit,
-device-crop train steps against plain-crop ones, CUDA-graphed train steps
+log-mel kernel; the lip-crop kernel against its plain version bit for bit
+(any channel count and canvas, every cluster size, a wide frame staged in
+chunks, frames off a 16-byte boundary, inside a CUDA graph), its launch
+count and phase times, device-crop train steps against plain-crop ones,
+CUDA-graphed train steps
 against eager ones (dropout on), capturable optimizer checkpoints resuming
 exactly and loading into a host-batching trainer and back, and ``remat``
 refused under graphs; the log-mel operator ``mlt::log_mel`` launching the
@@ -572,6 +575,127 @@ def test_crop_kernel_keeps_leading_axes_and_refuses_what_it_does_not_take(cuda_d
         crop_resize_cuda.crop_resize_pad(x, boxes.long())
     with pytest.raises(ValueError, match="one device"):
         crop_resize_cuda.crop_resize_pad(x, boxes.cpu())
+
+
+def _crop_case(n, device, seed, h=256, w=256, c=3):
+    """uint8 frames and ``chip_smoke.crop_boxes``' boxes (random mouths, a
+    failed detection, a negative width, edges, the whole frame, a square and
+    an exact 44 x 44)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)).to(device)
+    return frames, torch.from_numpy(chip_smoke.crop_boxes(rng, n, h, w)).to(device)
+
+
+def _crop_equal(frames, boxes, target=(44, 44), **launch):
+    """The kernel against the plain version in both modes, bit for bit (the
+    stated tolerance is 1 LSB; 0 differing values expected)."""
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+    from multimodal_lipread_torch.ops.crop_resize import (
+        crop_resize_pad_normalize_reference,
+        crop_resize_pad_reference,
+    )
+
+    for normalize, plain in ((False, crop_resize_pad_reference), (True, crop_resize_pad_normalize_reference)):
+        got = crop_resize_cuda.crop(frames, boxes, target, normalize=normalize, **launch)
+        torch.cuda.synchronize()
+        want = plain(frames, boxes, target)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert int((got != want).sum()) == 0, f"normalize={normalize}: {int((got != want).sum())} values differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("target", [(44, 44), (32, 48), (45, 37)])
+def test_crop_kernel_takes_any_channels_and_canvas(cuda_device, channels, target):
+    # rows of 122 * C bytes start off 16-byte boundaries (C = 1, 2, 3)
+    frames, boxes = _crop_case(29, cuda_device, seed=channels, h=90, w=122, c=channels)
+    _crop_equal(frames, boxes, target)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 29, 464, 928])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_crop_kernel_matches_plain_version_at_every_cluster_size(cuda_device, frames, cluster):
+    x, boxes = _crop_case(frames, cuda_device, seed=frames + cluster)
+    _crop_equal(x, boxes, cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster, cap", [(2, None), (4, None), (1, 4096), (2, 64)])
+def test_crop_kernel_stages_a_wide_frame_in_chunks(cuda_device, cluster, cap):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+
+    frames, boxes = _crop_case(6, cuda_device, seed=11, h=1080, w=1920)
+    boxes[1] = torch.tensor([0, 0, 1920, 1080])  # the whole frame: a band's window exceeds the stage
+    plan = crop_resize_cuda.staging_plan(boxes, 1080, 1920, 3, cluster=cluster,
+                                         stage=crop_resize_cuda.stage_bytes(
+                                             1080, 1920, 3, cluster=cluster,
+                                             cap=cap or crop_resize_cuda.STAGE_CAP))
+    assert len(plan[1]) > cluster  # more than one round a band
+    _crop_equal(frames, boxes, cluster=cluster, stage_cap=cap or crop_resize_cuda.STAGE_CAP)
+
+
+@pytest.mark.cuda
+def test_crop_kernel_takes_frames_off_a_16_byte_boundary(cuda_device):
+    frames, boxes = _crop_case(29, cuda_device, seed=5)
+    flat = torch.empty(frames.numel() + 5, dtype=torch.uint8, device=cuda_device)
+    shifted = flat[5:].view(frames.shape)  # contiguous, its data 5 bytes past an aligned address
+    shifted.copy_(frames)
+    _crop_equal(shifted, boxes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+def test_crop_kernel_in_a_cuda_graph_equals_eager(cuda_device, normalize):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+
+    frames, boxes = _crop_case(464, cuda_device, seed=13)
+    fn = crop_resize_cuda.crop_resize_pad_normalize if normalize else crop_resize_cuda.crop_resize_pad
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(frames, boxes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = crop_resize_cuda.launch_count
+    with torch.cuda.graph(graph):
+        captured = fn(frames, boxes)
+    assert crop_resize_cuda.launch_count == before + 1
+    frames.copy_(torch.flip(frames, [0]))  # the replay reads the frames as they are then
+    boxes.copy_(torch.flip(boxes, [0]))
+    graph.replay()
+    before = crop_resize_cuda.launch_count
+    eager = fn(frames, boxes)
+    torch.cuda.synchronize()
+    assert crop_resize_cuda.launch_count == before + 1
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_crop_kernel_counts_one_launch_a_call(cuda_device):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+
+    frames, boxes = _crop_case(29, cuda_device, seed=17)
+    before = crop_resize_cuda.launch_count
+    for k in range(1, 4):
+        crop_resize_cuda.crop_resize_pad(frames, boxes)
+        crop_resize_cuda.device_crop(frames, boxes)
+        assert crop_resize_cuda.launch_count == before + 2 * k
+    crop_resize_cuda.crop_resize_pad(frames[:0], boxes[:0])  # no frames: no launch
+    assert crop_resize_cuda.launch_count == before + 6
+
+
+@pytest.mark.cuda
+def test_crop_kernel_phase_times_cover_the_launch(cuda_device):
+    from multimodal_lipread_torch.ops import crop_resize_cuda
+
+    frames, boxes = _crop_case(464, cuda_device, seed=19)
+    t = crop_resize_cuda.phase_times(frames, boxes)
+    assert set(crop_resize_cuda.PHASES) <= set(t) and t["launch"] >= t["block"] > 0
+    cfg = crop_resize_cuda.launch_config()
+    assert cfg["cluster"] == crop_resize_cuda.CLUSTER and cfg["max_active_clusters"] > 0 and cfg["local_bytes"] == 0
 
 
 def _mlp_trainer(tmp_path, tag, device, **cfg):
