@@ -258,7 +258,36 @@ a non-zero exit:
    commit's way of making it and a resident request, in turns, with equal
    logits; the call's stages with the state copied from pinned and from
    pageable memory, in turns; and a request's 16 lip ``.npy`` files through
-   ``np.load`` and through ``serving.load_lips``.
+   ``np.load`` and through ``serving.load_lips``;
+29. ddp (after [graphs], before [zoo]): ``pipelines.audio.main`` trains
+   full-width vgg_lstm (B=32, 1 epoch, lr 1e-5, ``cudnn.deterministic``)
+   on [train]'s corpus, the log-mel kernel featurizing, (0) without a
+   process group, (a) as one rank over NCCL (DDP at world 1) and (b) as two
+   ranks over gloo sharing the card (NCCL refuses two ranks on one device),
+   and, where two cards are visible, (c) two ranks over NCCL: (a) bit-equal
+   to (0) over every step (1e-6), and in (a)'s rank 3 device-resident epochs
+   as CUDA graphs of 4 DDP steps (the NCCL all-reduce captured) against
+   eager ones, bit-equal expected (1e-6); (b) and (c) against (a): step 1's loss to
+   1e-5, its summed gradients in norm to 1e-2, the BatchNorm statistics
+   after it to 1e-6, steps 2 and 3 to 1e-3; each run's step time (CUDA
+   events) and its all-reduce share (``torch.profiler``). Ranks are
+   spawned by ``torch.multiprocessing`` over a ``FileStore``, their lines
+   tagged with the rank; a failing rank fails the run;
+30. tp: ``pipelines.cues.main`` at bert-base width (cues_config's bert, 1
+   epoch on a small cue corpus from ``--seed``) with
+   ``training.tensor_parallel: 2`` on two ranks (gloo sharing the card, or
+   NCCL across two cards) against tensor_parallel 1: the first 3 losses
+   to 2e-4, the parameters and Adam moments cut as ``BERT_TP_RULES`` say,
+   the step times and all-reduce share;
+31. pp: the pipelined bert-base at S = 1, M = 4 as one rank over NCCL
+   against ``BertClassifier`` at the same weights (dropout off): logits to
+   1e-5 and one GPipe step's loss to 1e-5 relative; S = 2 where two cards
+   are visible (gloo has no CUDA send/recv);
+32. dp-serve: ``serving.predict_clips(..., data_parallel=True)`` (the
+   CLI's ``--data-parallel``) over every visible card on [serve]'s
+   vgg_lstm weights, streaming (the log-mel kernel in each replica's
+   forward), against one resident ``Predictor``: logits to 1e-6, the
+   kernel's launches counted.
 
 Every phase prints its wall time. The video and cue phases, [cv-*] and
 [zoo] launch no hand-written kernel. The request breakdowns load lips
@@ -443,8 +472,12 @@ LOAD_THREADS, LOAD_AUDIO_REQUESTS, LOAD_CROP_REQUESTS = 4, 25, 10
 EXPORT_TOL = 1e-6
 
 
+# " rank r/W backend" inside a spawned rank ([ddp], [tp], [pp])
+RANK_TAG = ""
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}{RANK_TAG}] {msg}", flush=True)
 
 
 def timed(phase: str, fn, *args):
@@ -3359,6 +3392,446 @@ def graph_model(pipeline: str, name: str) -> torch.nn.Module:
 
     return get_triple_model(name, len(WORDS))
 
+# ---------------------------------------------------------------- multi-GPU
+# [ddp]: full-width vgg_lstm through pipelines.audio.main, 1 epoch at the
+# parity lr, under cudnn.deterministic. Two ranks against one: the first
+# step's loss to 1e-5, its summed gradients in norm (grad_rel_err) to 1e-2
+# (measured 2.1e-3 in float32; in float64 on the CPU two ranks' VGG
+# gradients equal one rank's to 2e-13, tests/test_torch_ddp.py holds the
+# step at 1e-6) and the BatchNorm statistics after it to 1e-6; steps 2 and 3 follow
+# Adam's first updates, which move every weight by about ±lr whatever its
+# gradient's size, so a weight whose gradient is rounding noise (the
+# ranks' half batches take other cuDNN and cuBLAS summation orders) steps
+# either way: held to PARITY_RTOL, the bound for two float32
+# implementations at this lr (measured 3.7e-5 and 1.8e-4).
+DDP_EPOCHS, DDP_LR = 1, PARITY_LR
+# graphed DDP steps: 3 epochs of 9 steps, so that groups are captured and
+# replayed after DDP's 11 eager steps
+DDP_GRAPH_EPOCHS, DDP_GRAPH_TOL = 3, 1e-6
+DDP_WORLD1_TOL, DDP_STEP1_RTOL, DDP_GRAD_RTOL, DDP_BN_TOL, DDP_STEPS = 1e-6, 1e-5, 1e-2, 1e-6, 3
+# [tp]: bert-base through pipelines.cues.main on a small cue corpus, 1 epoch
+TP_DEGREE, TP_CLIPS_PER_SPLIT, TP_RTOL = 2, 4, 2e-4  # tests/test_tensor_parallel.py's bound
+# [pp]: bert-base, S = 1 with M = 4 against BertClassifier (dropout off)
+PP_MICROBATCHES, PP_ATOL, PP_LOSS_RTOL = 4, 1e-5, 1e-5  # tests/test_pipeline_parallel.py's bound
+DP_SERVE_TOL = 1e-6  # tests/test_serving.py's bound for the JAX mesh
+
+
+def spawn_ranks(target, world: int, backend: str, payload: dict, tmp: str) -> list:
+    """``target(rank, world, payload)`` in ``world`` processes
+    (``torch.multiprocessing.spawn``), each in the default group over
+    ``backend`` through a ``FileStore`` under ``tmp``: NCCL with one card a
+    rank, gloo with every rank on card 0. A failure or a non-zero exit on
+    any rank raises here. Returns each rank's result."""
+    run = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    torch.multiprocessing.spawn(_rank_main, args=(target.__name__, world, backend, payload, run), nprocs=world,
+                                join=True)
+    return [torch.load(os.path.join(run, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def _rank_main(rank: int, target: str, world: int, backend: str, payload: dict, run: str) -> None:
+    global RANK_TAG
+    RANK_TAG = f" rank {rank}/{world} {backend}"
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank if backend == "nccl" else 0)})
+    from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed(DEVICE, init_method="file://" + os.path.join(run, "store"), backend=backend)
+    result = globals()[target](rank, world, payload)
+    torch.save(result, os.path.join(run, f"rank{rank}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Inside the block, every ``Trainer.train_step`` is timed (CUDA events,
+    the card synchronized after it) and its stats row kept; the first
+    step's BatchNorm running statistics, the trainer and its last batch are
+    kept too."""
+    from multimodal_lipread_torch.train import trainer as trainer_module
+
+    rec: dict = {"rows": [], "ms": [], "bn": None, "grads": None, "trainer": None, "batch": None}
+    step = trainer_module.Trainer.train_step
+
+    def timed_step(self, inputs, labels, weights):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = step(self, inputs, labels, weights)
+        end.record()
+        torch.cuda.synchronize()
+        rec["ms"].append(start.elapsed_time(end))
+        rec["rows"].append(stats.detach().double().cpu().numpy())
+        if rec["bn"] is None:
+            rec["bn"] = {n: b.detach().cpu().clone() for n, b in self.model.named_buffers() if "running_" in n}
+            rec["grads"] = {n: p.grad.detach().cpu().clone() for n, p in self.model.named_parameters()
+                            if p.grad is not None}
+        rec["trainer"], rec["batch"] = self, (inputs, labels, weights)
+        return stats
+
+    trainer_module.Trainer.train_step = timed_step
+    try:
+        yield rec
+    finally:
+        trainer_module.Trainer.train_step = step
+
+
+def allreduce_share(trainer, batch: tuple, steps: int = 3) -> dict:
+    """``steps`` more train steps on ``batch`` under ``torch.profiler``: the
+    union of the all-reduce spans (NCCL's kernels on the card, gloo's and
+    NCCL's host-side all-reduce work) against the profiled wall time."""
+    events, wall = profiled(lambda: [trainer.train_step(*batch) for _ in range(steps)])
+    spans = [e for e in events if "allreduce" in e.name.lower().replace("_", "")
+             and (e.device_type == torch.autograd.DeviceType.CUDA or e.name in ("gloo:all_reduce", "nccl:all_reduce"))]
+    comm = busy_seconds(spans) or 0.0
+    return {"comm_ms": comm * 1e3 / steps, "step_ms": wall * 1e3 / steps, "share": comm / wall}
+
+
+def ddp_run(rank: int, world: int, payload: dict) -> dict:
+    """[ddp]'s training on this process (the default group's world, or
+    none): ``pipelines.audio.main`` with its steps recorded, the log-mel
+    launches, and the all-reduce share of 3 more steps."""
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+
+    torch.backends.cudnn.deterministic = True
+    cfg = Config.from_dict(payload["config"])
+    cfg.set("output.base_dir", os.path.join(payload["base"], payload["label"]))
+    with recorded_steps() as rec:
+        logmel_cuda.launch_count = 0
+        t0 = time.perf_counter()
+        result = audio_pipeline.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = logmel_cuda.launch_count
+    share = allreduce_share(rec["trainer"], rec["batch"])
+    ms = np.asarray(rec["ms"][1:])
+    log("ddp", f"{payload['label']}: pipelines.audio.main {wall:.2f} s, {len(rec['ms'])} steps of "
+               f"{rec['batch'][1].shape[0]} rows here, step median {np.median(ms):.3f} ms (CUDA events, steps 2+), "
+               f"all-reduce {share['comm_ms']:.3f} ms of a {share['step_ms']:.3f} ms profiled step "
+               f"({100 * share['share']:.1f} %), log-mel launches {launches} | {payload['smi']}")
+    return {"rows": np.stack(rec["rows"]), "ms": rec["ms"], "bn": rec["bn"], "grads": rec["grads"],
+            "launches": launches, "history": result["history"], "share": share}
+
+
+def grad_rel_err(ref: dict, others: list) -> tuple:
+    """Each gradient tensor's difference in norm over its own norm, that
+    scale floored at 1e-3 of the model's largest tensor norm (a bias before
+    a BatchNorm has a gradient that is rounding noise: training-mode
+    BatchNorm subtracts it again): (the worst, its tensor, the largest
+    element difference over the tensor's largest element there). A norm,
+    not the elements: where the ranks' half batches round a max-pool
+    window's two largest inputs the other way, the gradient goes to the
+    other input, a difference of the gradient's own size at a few
+    elements; summing instead of averaging, or losing a rank's share, moves
+    the norm by half."""
+    scale = max(float(g.norm()) for g in ref.values())
+    errs = {n: float((o[n] - g).norm()) / max(float(g.norm()), 1e-3 * scale) for o in others for n, g in ref.items()}
+    worst = max(errs, key=errs.get)
+    elem = max(float((o[worst] - ref[worst]).abs().max()) for o in others) / float(ref[worst].abs().max())
+    return errs[worst], worst, elem
+
+
+def ddp_graph_run(rank: int, world: int, payload: dict) -> dict:
+    """(a) and then, in the same rank, [ddp]'s training device-resident for
+    ``DDP_GRAPH_EPOCHS`` epochs, eager and as CUDA graphs of 4 DDP steps
+    (collectives included; DDP's first 11 steps run eagerly), their
+    per-step losses (train and eval) kept."""
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+
+    out = ddp_run(rank, world, payload)
+    losses = {}
+    for k in (1, 4):
+        cfg = Config.from_dict(payload["config"])
+        for key, value in (("training.epochs", DDP_GRAPH_EPOCHS), ("training.device_resident", True),
+                           ("training.steps_per_dispatch", k),
+                           ("output.base_dir", os.path.join(payload["base"], f"graphs{k}"))):
+            cfg.set(key, value)
+        with recorded_losses() as rec:
+            t0 = time.perf_counter()
+            audio_pipeline.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+        losses[k] = flat_losses(rec)
+        log("ddp", f"(a) device-resident, steps_per_dispatch={k}: {DDP_GRAPH_EPOCHS} epochs in "
+                   f"{time.perf_counter() - t0:.2f} s, {len(losses[k])} train and eval steps")
+    return {**out, "graph_losses": losses}
+
+
+def ddp_losses(runs: list) -> np.ndarray:
+    """Per-step losses over every rank of a run: (Σ loss·w) / (Σ w)."""
+    rows = sum(r["rows"] for r in runs)
+    return rows[:, 0] / rows[:, 3]
+
+
+def phase_ddp(seed: int, device_info: dict, tmp: str) -> dict:
+    """DDP training of full-width vgg_lstm: no process group, NCCL at world
+    1, two gloo ranks sharing the card (and NCCL across cards where two are
+    visible), the steps held across them."""
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+
+    smi = device_info["smi"]
+    root = make_synthetic_glips(os.path.join(tmp, "ddp", "GLips_4"), words=WORDS,
+                                clips_per_split=TRAIN_CLIPS_PER_SPLIT, seed=seed)
+    payload = {"smi": smi, "base": os.path.join(tmp, "ddp"), "config": {
+        "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117},
+        "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": DDP_EPOCHS, "learning_rate": DDP_LR,
+                     "weight_decay": TRAIN_WD, "seed": seed}}}
+    log("ddp", f"[train]'s corpus from --seed, vgg_lstm VGG{VGG_VERSION}-BN + BiLSTM 2x128, float32, batch "
+               f"{TRAIN_BATCH}, {DDP_EPOCHS} epoch at lr {DDP_LR:g} (steps compared across worlds: a larger lr "
+               f"amplifies reduction-order rounding through Adam), cudnn.deterministic")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        alone = ddp_run(0, 1, {**payload, "label": "no process group"})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("ddp", "(a) NCCL at world 1: the NCCL path on the one card (DDP's all-reduce of one rank)")
+    world1 = spawn_ranks(ddp_graph_run, 1, "nccl", {**payload, "label": "(a) world 1 NCCL"}, tmp)
+    log("ddp", "(b) two ranks over gloo sharing card 0: NCCL refuses two ranks on one device, and gloo runs the "
+               "all-reduce and broadcast that data parallelism needs on CUDA tensors")
+    world2 = spawn_ranks(ddp_run, 2, "gloo", {**payload, "label": "(b) world 2 gloo, one card"}, tmp)
+    runs = {"(a)": world1, "(b)": world2}
+    if torch.cuda.device_count() >= 2:
+        log("ddp", "(c) two ranks over NCCL, one card a rank")
+        runs["(c)"] = spawn_ranks(ddp_run, 2, "nccl", {**payload, "label": "(c) world 2 NCCL"}, tmp)
+    else:
+        log("ddp", f"(c) two ranks over NCCL on two cards: not run, {torch.cuda.device_count()} card visible")
+
+    want = ddp_losses([alone])
+    got = ddp_losses(world1)
+    err = float(np.abs(got - want).max())
+    ok = got.shape == want.shape and err <= DDP_WORLD1_TOL and np.isfinite(got).all()
+    log("ddp", f"(a) vs no process group: {len(got)} step losses, max abs diff {err:.3e} (tolerance "
+               f"{DDP_WORLD1_TOL:g}, bit-equal expected: {bool(np.array_equal(got, want))}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[ddp] NCCL at world 1 departs from the run without a process group")
+    eager, graphed = (world1[0]["graph_losses"][k] for k in (1, 4))
+    err = float(np.abs(graphed - eager).max()) if graphed.shape == eager.shape else float("inf")
+    ok = err <= DDP_GRAPH_TOL and np.isfinite(graphed).all()
+    log("ddp", f"(a) CUDA graphs of 4 DDP steps over NCCL (the all-reduce captured) vs eager device-resident "
+               f"steps: {len(graphed)} per-step losses, max abs diff {err:.3e} (tolerance {DDP_GRAPH_TOL:g}, bit-equal "
+               f"expected under cudnn.deterministic) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[ddp] graphed DDP steps depart from eager ones")
+    ref = world1[0]
+    for label, ranks in list(runs.items())[1:]:
+        got = ddp_losses(ranks)[:DDP_STEPS]
+        rel = np.abs(got / ddp_losses(world1)[:DDP_STEPS] - 1.0)
+        bn_err = max(float(((r["bn"][n] - ref["bn"][n]).abs() / (1.0 + ref["bn"][n].abs())).max())
+                     for r in ranks for n in ref["bn"])
+        grad_err, worst, elem = grad_rel_err(ref["grads"], [r["grads"] for r in ranks])
+        apart = max(float((ranks[0]["grads"][n] - r["grads"][n]).abs().max()) for r in ranks for n in ref["grads"])
+        log("ddp", f"{label}: the ranks' summed gradients differ by at most {apart:.3e} between ranks")
+        ok = (rel[0] <= DDP_STEP1_RTOL and bool(np.all(rel[1:] <= PARITY_RTOL)) and bn_err <= DDP_BN_TOL
+              and grad_err <= DDP_GRAD_RTOL and set(ranks[0]["grads"]) == set(ref["grads"]))
+        log("ddp", f"{label} vs (a): first {DDP_STEPS} step losses {got.tolist()} relative {rel.tolist()} "
+                   f"(tolerance {DDP_STEP1_RTOL:g} for step 1, {PARITY_RTOL:g} after Adam's first updates); step "
+                   f"1's summed gradients, every rank, |diff| / |grad| per tensor at most {grad_err:.3e} (worst {worst}, "
+                   f"whose largest element differs by {elem:.3e} of its largest; tolerance {DDP_GRAD_RTOL:g}); "
+                   f"BatchNorm running statistics after step 1, max |diff| / (1 + |value|) "
+                   f"{bn_err:.3e} (tolerance {DDP_BN_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[ddp] {label} departs from one rank")
+    for label, ranks in [("no process group", [alone])] + list(runs.items()):
+        h = ranks[0]["history"][-1]
+        log("ddp", f"{label}: epoch {h['epoch']} train {h['train_loss']:.4f}/{h['train_acc']:.2f}% val "
+                   f"{h['val_loss']:.4f}/{h['val_acc']:.2f}% test {h['test_loss']:.4f}/{h['test_acc']:.2f}%, "
+                   f"train step median {np.median(ranks[0]['ms'][1:]):.3f} ms, all-reduce share "
+                   f"{100 * ranks[0]['share']['share']:.1f} % | {smi}")
+    launches = alone["launches"] + sum(r["launches"] for ranks in runs.values() for r in ranks)
+    if min([alone["launches"]] + [r["launches"] for ranks in runs.values() for r in ranks]) < 1:
+        raise SystemExit("[ddp] a run never launched the log-mel kernel")
+    return {"launches": launches}
+
+
+def tp_run(rank: int, world: int, payload: dict) -> dict:
+    """[tp]'s training on this process: ``pipelines.cues.main`` at bert-base
+    width with ``training.tensor_parallel`` = the payload's degree, its
+    steps recorded; at degree 2 the cut shapes are checked here."""
+    from multimodal_lipread_torch.pipelines import cues as cues_pipeline
+
+    cfg = cues_config(payload["root"], os.path.join(payload["base"], f"tp{payload['tp']}"), payload["seed"])
+    cfg.set("training.epochs", 1)
+    cfg.set("training.tensor_parallel", payload["tp"])
+    with recorded_steps() as rec:
+        t0 = time.perf_counter()
+        result = cues_pipeline.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trainer = rec["trainer"]
+    shapes = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
+    moments = {trainer._opt_names[i]: tuple(trainer.optimizer.state[p]["exp_avg"].shape)
+               for i, p in enumerate(trainer.optimizer.param_groups[0]["params"])}
+    if payload["tp"] > 1:
+        h, f, k = 768, 3072, payload["tp"]
+        want = {"layer0.attention.query.weight": (h // k, h), "layer0.attention.out.weight": (h, h // k),
+                "layer11.intermediate.weight": (f // k, h), "layer11.output.weight": (h, f // k),
+                "layer11.output.bias": (h,), "embeddings.word_embeddings.weight": shapes[
+                    "embeddings.word_embeddings.weight"]}
+        bad = {n: (shapes[n], s) for n, s in want.items() if shapes[n] != s or moments[n] != s}
+        if bad or trainer.model.layer0.attention.num_heads != 12 // k:
+            raise SystemExit(f"[tp] cut shapes (got, want): {bad}")
+        log("tp", f"parameters and Adam moments cut by BERT_TP_RULES: query {shapes['layer0.attention.query.weight']}"
+                  f", attention out {shapes['layer0.attention.out.weight']}, intermediate "
+                  f"{shapes['layer11.intermediate.weight']}, output {shapes['layer11.output.weight']}, "
+                  f"{trainer.model.layer0.attention.num_heads} heads a rank")
+    share = allreduce_share(trainer, rec["batch"])
+    log("tp", f"tensor_parallel={payload['tp']}: pipelines.cues.main {wall:.2f} s, {len(rec['ms'])} steps, step "
+              f"median {np.median(rec['ms'][1:]):.3f} ms (CUDA events), all-reduce {share['comm_ms']:.3f} ms of a "
+              f"{share['step_ms']:.3f} ms profiled step | {payload['smi']}")
+    rows = np.stack(rec["rows"])
+    return {"losses": rows[:, 0] / rows[:, 3], "ms": rec["ms"], "history": result["history"]}
+
+
+def phase_tp(seed: int, device_info: dict, tmp: str) -> None:
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+
+    root = make_synthetic_glips(os.path.join(tmp, "tp", "GLips_4"), words=WORDS, clips_per_split=TP_CLIPS_PER_SPLIT,
+                                seed=seed, with_audio=False, with_cues=True)
+    payload = {"root": root, "base": os.path.join(tmp, "tp"), "seed": seed, "smi": device_info["smi"]}
+    log("tp", f"cues_config's bert at bert-base width, float32, batch {CUES_BATCH}, 1 epoch on a cue corpus of "
+              f"{TP_CLIPS_PER_SPLIT} clips a word and split from --seed")
+    one = tp_run(0, 1, {**payload, "tp": 1})
+    if torch.cuda.device_count() >= TP_DEGREE:
+        backend, why = "nccl", "one card a rank"
+    else:
+        backend, why = "gloo", "two ranks share card 0 (NCCL refuses that; gloo's all-reduce and broadcast take " \
+                               "CUDA tensors, and a tensor-parallel step needs no other collective)"
+    log("tp", f"tensor_parallel={TP_DEGREE} over {backend}: {why}")
+    two = spawn_ranks(tp_run, TP_DEGREE, backend, {**payload, "tp": TP_DEGREE}, tmp)
+    want = one["losses"][:3]
+    for r, ranked in enumerate(two):
+        got = ranked["losses"][:3]
+        ok = bool(np.allclose(got, want, rtol=TP_RTOL, atol=0)) and np.isfinite(ranked["losses"]).all()
+        log("tp", f"rank {r}: first 3 losses {got.tolist()} against tensor_parallel=1 {want.tolist()} (rtol "
+                  f"{TP_RTOL:g}) {'ok' if ok else 'FAIL'}; step median {np.median(ranked['ms'][1:]):.3f} ms against "
+                  f"{np.median(one['ms'][1:]):.3f} ms at tensor_parallel=1 | {device_info['smi']}")
+        if not ok:
+            raise SystemExit("[tp] the tensor-parallel steps depart from tensor_parallel=1")
+
+
+def pp_check(rank: int, world: int, payload: dict) -> dict:
+    """[pp] on this process: the pipelined bert-base at S = ``world`` stages
+    and M = ``PP_MICROBATCHES`` against ``BertClassifier`` at the same
+    weights: eval logits, and one GPipe step's loss against the plain loss."""
+    import torch.nn.functional as F
+
+    from multimodal_lipread_torch.models.bert import (
+        BertClassifier,
+        PipelinedBertClassifier,
+        bert_base_config,
+        unstack_bert_layers,
+    )
+    from multimodal_lipread_torch.nn.common import flax_init_
+    from multimodal_lipread_torch.parallel.pipeline import gpipe_forward, gpipe_train_step, get_mesh_pp, reduce_grads
+
+    cfg = bert_base_config()
+    cfg.dropout_rate = 0.0
+    mesh = get_mesh_pp(world)
+    pp = PipelinedBertClassifier(cfg, len(WORDS), num_stages=world, mesh=mesh, num_microbatches=PP_MICROBATCHES)
+    flax_init_(pp, torch.Generator().manual_seed(payload["seed"]))
+    plain = BertClassifier(cfg, len(WORDS))
+    plain.load_state_dict(unstack_bert_layers(pp.state_dict(), cfg.num_layers))
+    pp, plain = pp.to(DEVICE), plain.to(DEVICE).eval()
+    ids = torch.from_numpy(payload["ids"]).to(DEVICE)
+    labels = torch.from_numpy(payload["labels"]).long().to(DEVICE)
+    from multimodal_lipread_torch.utils.precision import model_precision
+
+    with model_precision(torch.float32), torch.no_grad():
+        got = gpipe_forward(pp.eval(), ids, pp.key_mask(ids), mesh, PP_MICROBATCHES)
+        want = plain(ids)
+        plain_loss = float(F.cross_entropy(want.float(), labels))
+    with model_precision(torch.float32):
+        ones = torch.ones(len(ids), device=DEVICE)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = gpipe_train_step(pp.train(), ids, labels, ones, ones, ones.sum(), mesh, PP_MICROBATCHES)
+        reduce_grads(pp, mesh)
+        end.record()
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    loss = float(stats[0] / stats[3])
+    rel = abs(loss / plain_loss - 1.0)
+    ok = err <= PP_ATOL and rel <= PP_LOSS_RTOL
+    log("pp", f"S={world} M={PP_MICROBATCHES}: logits vs BertClassifier at the same weights, max abs err {err:.3e} "
+              f"(tolerance {PP_ATOL:g}); one GPipe step's loss {loss:.6f} vs {plain_loss:.6f}, relative {rel:.2e} "
+              f"(tolerance {PP_LOSS_RTOL:g}); the step {start.elapsed_time(end):.3f} ms (CUDA events, first "
+              f"call) {'ok' if ok else 'FAIL'} | {payload['smi']}")
+    if not ok:
+        raise SystemExit(f"[pp] the pipelined BERT at S={world} departs from BertClassifier")
+    return {"err": err, "rel": rel}
+
+
+def phase_pp(seed: int, device_info: dict) -> None:
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 30522, size=(CUES_BATCH, 32)).astype(np.int64)
+    ids[:, 0] = 1
+    ids[: CUES_BATCH // 2, 20:] = 0
+    payload = {"ids": ids, "labels": rng.integers(0, len(WORDS), size=CUES_BATCH), "seed": seed,
+               "smi": device_info["smi"]}
+    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_pp_")
+    try:
+        log("pp", "S=1 over NCCL at world 1: the GPipe schedule with one stage and 4 microbatches, dropout off")
+        spawn_ranks(pp_check, 1, "nccl", payload, tmp)
+        if torch.cuda.device_count() >= 2:
+            spawn_ranks(pp_check, 2, "nccl", payload, tmp)
+        else:
+            log("pp", f"S=2 not run: {torch.cuda.device_count()} card visible; the stages exchange activations by "
+                      "send/recv, which gloo runs on the CPU only, so two stages on the card need two cards over "
+                      "NCCL (ROADMAP.md, Queue 3 #16); tests/test_torch_pipeline_parallel.py holds S=2 and S=4 on "
+                      "the CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dp_serve(seed: int, device_info: dict) -> int:
+    """``predict_clips(..., data_parallel=True)`` (the CLI's
+    ``--data-parallel``) over every visible card on [serve]'s vgg_lstm
+    checkpoint, streaming (the log-mel kernel in each replica's forward),
+    against one resident ``Predictor``."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.models.frontend import WaveToLogMel
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines.common import decode_waveforms
+    from multimodal_lipread_torch.train.checkpoint import module_state, save_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="mlt_chip_smoke_dp_")
+    try:
+        root = os.path.join(tmp, "GLips_4")
+        clips = write_corpus(root, np.random.default_rng(seed + 1))
+        cfg = Config.from_dict({"dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117,
+                                            "streaming": True},
+                                "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"}})
+        model = serving.build_audio_model(Config.from_dict({**cfg.config, "dataset": {
+            **cfg.config["dataset"], "streaming": False}}))
+        init_weights(model, torch.Generator().manual_seed(seed))  # [serve]'s weights
+        ckpt = os.path.join(tmp, "vgg_lstm_stream_best.pt")
+        save_checkpoint(ckpt, {"epoch": 0, "val_acc": 0.0, "state": module_state(WaveToLogMel(model, 117))})
+        devices = serving.replica_devices(DEVICE)
+        logmel_cuda.launch_count = 0
+        t0 = time.perf_counter()
+        served = serving.predict_clips(cfg, ckpt, "audio", [[c] for c in clips], SERVE_BATCH, device=DEVICE,
+                                       data_parallel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = logmel_cuda.launch_count
+        got = np.asarray([r["logits"] for r in served], np.float32)
+        single = serving.Predictor.from_checkpoint(serving.build_audio_model(cfg), ckpt, SERVE_BATCH, device=DEVICE)
+        want = single.predict_logits(decode_waveforms(clips))
+        err = float(np.abs(got - want).max())
+        ok = got.shape == want.shape and err <= DP_SERVE_TOL and launches > 0
+        log("dp-serve", f"{len(clips)} clips in batches of {SERVE_BATCH} over {len(devices)} replica(s) {devices} "
+                        f"in {wall:.2f} s (build, load, decode, serve): logits vs one resident Predictor, max abs "
+                        f"err {err:.3e} (tolerance {DP_SERVE_TOL:g}), log-mel launches {launches} "
+                        f"{'ok' if ok else 'FAIL'} | {device_info['smi']}")
+        if not ok:
+            raise SystemExit("[dp-serve] data-parallel serving departs from one replica")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3407,6 +3880,11 @@ def main(argv=None) -> int:
         timed("graphs", phase_graphs, seed, device_info, tmp, {
             "audio_video": av["datasets"]["train"], "audio_cues_video": acv["datasets"]["train"],
             "cues": cues["datasets"]["train"], "audio_cues": ac["datasets"]["train"]})
+        ddp_launches = timed("ddp", phase_ddp, seed, device_info, tmp)["launches"]
+        timed("tp", phase_tp, seed, device_info, tmp)
+        timed("pp", phase_pp, seed, device_info)
+        dp_launches = timed("dp-serve", phase_dp_serve, seed, device_info)
+        launches += ddp_launches + dp_launches
         timed("zoo", phase_zoo, seed, device_info, av, video["best"], tmp, cues, ac, cv, acv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3426,7 +3904,7 @@ def main(argv=None) -> int:
         "bound_by": row["bound_by"],
         "library_ms": None,
         "paths": ["serve", "train", "stream-train", "native-stream", "load-test", "export", "av-train", "av-serve",
-                  "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen"],
+                  "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen", "ddp", "dp-serve"],
     }, {
         "name": "crop_resize",
         "route": "cuda",

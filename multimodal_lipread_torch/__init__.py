@@ -25,7 +25,10 @@ ffmpeg where a clip is not 16 kHz WAV (``tools/transcode.py`` builds a WAV
 mirror once). Serving also measures tail latency (``load_test``) and
 exports a checkpoint's graph with ``torch.export``; ``cli.py`` holds the
 entry functions and ``data/frame_extraction.py``, ``tools/data_clean.py``
-the offline tools. See ROADMAP.md for what remains.
+the offline tools. Several GPUs (``parallel/``): every pipeline trains
+data-parallel under ``torch.distributed.run`` (DDP over NCCL), the BERT cue
+model also tensor- and pipeline-parallel, and serving runs a replica per
+card (``--data-parallel``). See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

@@ -29,7 +29,7 @@ uint8 ``.npy`` lips).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -134,6 +134,14 @@ def _stack_records(records):
     return {k: np.stack([np.asarray(r[k]) for r in records]) for k in records[0]}
 
 
+def _default_shard(index: Optional[int], count: Optional[int]) -> Tuple[int, int]:
+    """The shard a dataset reads: as given, else this process's rank and the
+    world size (0 / 1 without a process group)."""
+    from multimodal_lipread_torch.parallel.distributed import rank, world_size
+
+    return (rank() if index is None else index), (world_size() if count is None else count)
+
+
 class StreamingDataset:
     """One epoch at a time of a random-access source, for ``Trainer.fit``.
 
@@ -143,15 +151,17 @@ class StreamingDataset:
       .permutation`` when shuffled, the index order otherwise: every record
       once, the same for a given (seed, epoch) (grain's ``IndexSampler``
       permutation is not reproduced);
-    - ``shard_index`` / ``shard_count`` (0 / 1 by default) take every
-      ``shard_count``-th record of that order from ``shard_index`` on, a
-      ceil split: ``len`` is this shard's count, ``global_batches`` the
-      largest shard's batch count;
+    - ``shard_index`` / ``shard_count`` (by default this process's rank and
+      the world size where a process group is initialized, else 0 / 1)
+      take every ``shard_count``-th record of that order from
+      ``shard_index`` on, a ceil split: ``len`` is this shard's count,
+      ``global_batches`` the largest shard's batch count;
     - ``worker_count`` is the ``DataLoader``'s ``num_workers`` (0 loads in
       the calling thread)."""
 
     def __init__(self, source, input_keys: Sequence[str], label_key: str = "label", seed: int = 0,
-                 worker_count: int = 0, shard_index: int = 0, shard_count: int = 1):
+                 worker_count: int = 0, shard_index: Optional[int] = None, shard_count: Optional[int] = None):
+        shard_index, shard_count = _default_shard(shard_index, shard_count)
         if not 0 <= shard_index < shard_count:
             raise ValueError(f"shard_index {shard_index} outside [0, {shard_count})")
         self.source = source
@@ -209,8 +219,8 @@ class NativeStreamingDataset:
     - ``kind='npy_u8'``: uint8 lip ``.npy`` records of ``record_shape``;
     - an epoch's order is ``np.random.default_rng(seed + epoch)
       .permutation`` when shuffled, the index order otherwise, sharded
-      ``[shard_index::shard_count]`` (0 / 1 by default), as
-      :class:`StreamingDataset`'s;
+      ``[shard_index::shard_count]`` (rank / world under a process group,
+      else 0 / 1, by default), as :class:`StreamingDataset`'s;
     - a file the prefetcher could not read raises, naming the file;
     - ``wire_dtype='int16'`` (``kind='wav'`` only) ships the waveforms as
       int16, half the bytes to the card, where the trainer casts them back
@@ -228,12 +238,13 @@ class NativeStreamingDataset:
         seed: int = 0,
         n_threads: Optional[int] = None,
         capacity: int = 256,
-        shard_index: int = 0,
-        shard_count: int = 1,
+        shard_index: Optional[int] = None,
+        shard_count: Optional[int] = None,
         wire_dtype: Optional[str] = None,
     ):
         from multimodal_lipread_torch.data.native_io import DEFAULT_THREADS, NativePrefetcher
 
+        shard_index, shard_count = _default_shard(shard_index, shard_count)
         if not 0 <= shard_index < shard_count:
             raise ValueError(f"shard_index {shard_index} outside [0, {shard_count})")
         self.entries = list(entries)

@@ -21,9 +21,21 @@ one is given: padded keys are masked out of every softmax.
 Submodule names are the JAX module's (``embeddings.word_embeddings``,
 ``layer{i}.attention.query``, ``attention_norm``, ``intermediate``,
 ``output``, ``output_norm``, ``pooler``, ``classifier``), so
-``utils/jax_bridge.py`` maps the variables by name. The pipeline-parallel
-``PipelinedBertClassifier`` and the tensor- and pipeline-parallel
-partition rules are multi-GPU work (ROADMAP.md, Queue 1 #12).
+``utils/jax_bridge.py`` maps the variables by name.
+
+Model parallelism, as the JAX module has it:
+
+- ``BERT_TP_RULES``: Megatron tensor parallelism over a ``(data, model)``
+  mesh. Query, key and value are column-parallel over the heads, the
+  attention output row-parallel, the FFN's ``intermediate`` column- and
+  ``output`` row-parallel; the trainer cuts the weights
+  (``parallel/mesh.place_state``) and ``set_tensor_parallel`` turns on the
+  collectives (``BertLayer``, ``MultiHeadDotProductAttention``).
+- ``PipelinedBertClassifier``: the same model with its encoder layers
+  stacked (``encoder.*``, leading axis = layer) for GPipe over a
+  ``(data, stage)`` mesh (``parallel/pipeline.py``, ``BERT_PP_RULES``);
+  ``stack_bert_layers`` / ``unstack_bert_layers`` convert its
+  ``state_dict`` to and from ``BertClassifier``'s.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import dataclasses
 import hashlib
 import re
 import sys
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +53,7 @@ from torch import nn
 
 from multimodal_lipread_torch.nn.attention import MultiHeadDotProductAttention
 from multimodal_lipread_torch.nn.common import Dropout, Embedding, LayerNorm, linear
+from multimodal_lipread_torch.parallel.mesh import copy_to_group, reduce_from_group
 
 
 @dataclasses.dataclass
@@ -58,6 +71,26 @@ class BertConfig:
 
 def bert_base_config() -> BertConfig:
     return BertConfig()
+
+
+# Megatron tensor-parallel rules on the port's names and torch layouts
+# (``Linear.weight`` is (out, in)): the JAX rules of models/bert.py, a Flax
+# kernel's "in" axis being a torch weight's last. query/key/value and
+# intermediate shard their outputs (rows of the weight), attention out and
+# output their inputs (columns); their biases stay whole and are added
+# after the all-reduce. LayerNorms, embeddings, pooler and head replicate.
+BERT_TP_RULES = (
+    (r"attention\.(query|key|value)\.weight$", ("model", None)),
+    (r"attention\.(query|key|value)\.bias$", ("model",)),
+    (r"attention\.out\.weight$", (None, "model")),
+    (r"intermediate\.weight$", ("model", None)),
+    (r"intermediate\.bias$", ("model",)),
+    (r"(^|\.)output\.weight$", (None, "model")),
+)
+
+# Pipeline-parallel rule: the stacked encoder shards its layer axis over
+# 'stage'; the trailing "..." replicates the rest whatever the rank.
+BERT_PP_RULES = ((r"(^|\.)encoder\.", ("stage", "...")),)
 
 
 def bert_tiny_config(vocab_size: int = 8192) -> BertConfig:
@@ -108,10 +141,22 @@ class BertLayer(nn.Module):
         self.output = nn.Linear(c.intermediate_size, c.hidden_size)
         self.output_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = Dropout(c.dropout_rate)
+        self.tp_group = None
+
+    def set_tensor_parallel(self, group, size: int) -> None:
+        """Run as one of ``size`` tensor-parallel ranks over ``group`` (the
+        weights are cut by ``BERT_TP_RULES``)."""
+        self.attention.set_tensor_parallel(group, size)
+        self.tp_group = group
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.attention_norm(x + self.dropout(self.attention(x, mask)))
-        y = linear(self.output, F.gelu(linear(self.intermediate, x)))
+        if self.tp_group is None:
+            y = linear(self.output, F.gelu(linear(self.intermediate, x)))
+        else:
+            h = F.gelu(linear(self.intermediate, copy_to_group(x, self.tp_group)))
+            y = reduce_from_group(F.linear(h, self.output.weight.to(h.dtype)), self.tp_group)
+            y = y + self.output.bias.to(h.dtype)
         return self.output_norm(x + self.dropout(y))
 
 
@@ -140,6 +185,123 @@ class BertClassifier(nn.Module):
             x = getattr(self, f"layer{i}")(x, mask)
         pooled = self.dropout(torch.tanh(linear(self.pooler, x[:, 0, :])))
         return linear(self.classifier, pooled)
+
+
+class StackedBertLayers(BertLayer):
+    """``num_layers`` encoder layers as one ``BertLayer`` whose every
+    parameter has a leading layer axis (the JAX ``encoder`` collection);
+    ``layer(i, x, mask)`` runs layer ``i`` of what this module holds."""
+
+    def __init__(self, config: BertConfig, num_layers: int):
+        super().__init__(config)
+        self.config = config
+        with torch.no_grad():
+            for module in self.modules():
+                for name, p in list(module.named_parameters(recurse=False)):
+                    setattr(module, name, nn.Parameter(p.detach().unsqueeze(0).repeat(
+                        (num_layers,) + (1,) * p.ndim)))
+
+    def fresh_layer(self) -> BertLayer:
+        """An unstacked layer, for ``nn.common.flax_init_``."""
+        return BertLayer(self.config)
+
+    @property
+    def num_stacked(self) -> int:
+        return self.attention_norm.weight.shape[0]
+
+    def layer(self, i: int, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        from torch.func import functional_call
+
+        params = {name: p[i] for name, p in self.named_parameters()}
+        return functional_call(self, params, (x, mask))
+
+
+class PipelinedBertClassifier(nn.Module):
+    """``BertClassifier`` with its encoder layers stacked (``encoder.*``),
+    for GPipe pipeline parallelism (counterpart of the JAX module).
+
+    The same math: embeddings, ``num_layers`` post-LN layers, tanh pooler
+    over [CLS], head. ``num_stages`` S > 1 needs a ``(data, stage)`` mesh
+    (``parallel/pipeline.get_mesh_pp``): stage s runs layers [s·L/S,
+    (s+1)·L/S) over ``num_microbatches`` microbatches (S by default), stage
+    0 the embeddings and the last stage the pooler and head
+    (``parallel/pipeline.py``); the forward returns the logits on every
+    stage. The trainer cuts the encoder by ``BERT_PP_RULES``; an uncut
+    encoder runs its own stage's slice. With S = 1 the layers run in turn.
+    Embeddings, pooler and head are held whole on every stage, as the JAX
+    mesh replicates them. ``stack_bert_layers`` / ``unstack_bert_layers``
+    convert checkpoints to and from ``BertClassifier``."""
+
+    def __init__(self, config: BertConfig, num_classes: int, num_stages: int = 1, mesh=None,
+                 num_microbatches: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = config
+        if num_stages < 1 or c.num_layers % num_stages:
+            raise ValueError(f"{c.num_layers} layers not divisible by {num_stages} pipeline stages")
+        self.config = c
+        self.dtype = dtype
+        self.num_stages = num_stages
+        self.num_microbatches = num_microbatches or num_stages
+        self.mesh = mesh
+        self.embeddings = BertEmbeddings(c)
+        self.encoder = StackedBertLayers(c, c.num_layers)
+        self.pooler = nn.Linear(c.hidden_size, c.hidden_size)
+        self.dropout = Dropout(c.dropout_rate)
+        self.classifier = nn.Linear(c.hidden_size, num_classes)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embeddings(input_ids, self.dtype)
+
+    def run_layers(self, x: torch.Tensor, mask: Optional[torch.Tensor], stage: int = 0) -> torch.Tensor:
+        """This stage's layers over ``x``: all the encoder holds where it is
+        cut to the stage, else the stage's slice of the whole stack."""
+        held = self.encoder.num_stacked
+        per_stage = self.config.num_layers // self.num_stages
+        first = 0 if held == per_stage else stage * per_stage
+        for i in range(first, first + per_stage):
+            x = self.encoder.layer(i, x, mask)
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = self.dropout(torch.tanh(linear(self.pooler, x[:, 0, :])))
+        return linear(self.classifier, pooled)
+
+    @staticmethod
+    def key_mask(input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = input_ids != 0
+        return attention_mask[:, None, None, :].bool()
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mask = self.key_mask(input_ids, attention_mask)
+        if self.num_stages > 1:
+            if self.mesh is None:
+                raise ValueError("num_stages > 1 requires a (data, stage) mesh")
+            from multimodal_lipread_torch.parallel.pipeline import gpipe_forward
+
+            return gpipe_forward(self, input_ids, mask, self.mesh, self.num_microbatches)
+        return self.head(self.run_layers(self.embed(input_ids), mask))
+
+
+def stack_bert_layers(state: Dict[str, torch.Tensor], num_layers: int) -> Dict[str, torch.Tensor]:
+    """``BertClassifier`` ``state_dict`` (``layer0.*`` … ``layer{L-1}.*``) →
+    ``PipelinedBertClassifier``'s (one ``encoder.*`` tensor per name, the
+    layers stacked on a leading axis)."""
+    out = {k: v for k, v in state.items() if not re.match(r"layer\d+\.", k)}
+    for key in (k[len("layer0."):] for k in state if k.startswith("layer0.")):
+        out[f"encoder.{key}"] = torch.stack([state[f"layer{i}.{key}"] for i in range(num_layers)])
+    return out
+
+
+def unstack_bert_layers(state: Dict[str, torch.Tensor], num_layers: int) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`stack_bert_layers`: a pipelined checkpoint's
+    parameters load into a ``BertClassifier``."""
+    out = {k: v for k, v in state.items() if not k.startswith("encoder.")}
+    for k, v in state.items():
+        if k.startswith("encoder."):
+            for i in range(num_layers):
+                out[f"layer{i}.{k[len('encoder.'):]}"] = v[i].clone()
+    return out
 
 
 class HashingTokenizer:

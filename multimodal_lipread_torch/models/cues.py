@@ -256,23 +256,21 @@ def embedding_width(kind: str) -> int:
 
 def get_cue_model(
     name: str, num_classes: int, dtype: torch.dtype = torch.float32, bert_size: str = "tiny",
-    pipeline_stages: int = 0, input_dim: Optional[int] = None,
+    pipeline_stages: int = 0, input_dim: Optional[int] = None, mesh=None, num_microbatches: int = 0,
 ) -> nn.Module:
     """The registry's model ``name``; ``input_dim`` defaults to the width of
     its embedding kind. BERT at ``bert_size`` 'base', 'small' or else the
     tiny offline width (a warning says that the reference fine-tunes
-    bert-base). ``pipeline_stages > 1`` raises: only BERT could take it in
-    the JAX package, and the port has no pipeline-parallel BERT yet."""
+    bert-base). ``pipeline_stages`` S > 1 builds the
+    ``PipelinedBertClassifier`` over ``mesh`` (a ``(data, stage)`` mesh)
+    with ``num_microbatches`` (S when 0); only BERT takes it, as in the JAX
+    package."""
     if name not in CUE_MODEL_SPECS:
         raise ValueError(f"Unknown cue model: {name}")
-    if pipeline_stages > 1:
-        if name not in ("bert", "bert_lite"):
-            raise ValueError(
-                "training.pipeline_parallel > 1 is only supported for the BERT "
-                f"cue models (got model.name={name!r})"
-            )
-        raise NotImplementedError(
-            "a pipeline-parallel BERT is not ported to PyTorch yet (ROADMAP.md, Queue 1 #12)"
+    if pipeline_stages > 1 and name not in ("bert", "bert_lite"):
+        raise ValueError(
+            "training.pipeline_parallel > 1 is only supported for the BERT "
+            f"cue models (got model.name={name!r})"
         )
     cls, kind = CUE_MODEL_SPECS[name]
     if cls is None:
@@ -294,5 +292,10 @@ def get_cue_model(
                 stacklevel=2,
             )
         cfg = {"base": bert_base_config, "small": bert_small_config}.get(bert_size, bert_tiny_config)()
+        if pipeline_stages > 1:
+            from multimodal_lipread_torch.models.bert import PipelinedBertClassifier
+
+            return PipelinedBertClassifier(cfg, num_classes, num_stages=pipeline_stages, mesh=mesh,
+                                           num_microbatches=num_microbatches, dtype=bert_dtype)
         return BertClassifier(cfg, num_classes, dtype=bert_dtype)
     return cls(input_dim or embedding_width(kind), num_classes, dtype=dtype)

@@ -88,34 +88,56 @@ class MultiHeadDotProductAttention(nn.Module):
     softmax, not NaN; softmax over the keys; in training, dropout on the
     attention probabilities with one (T, T) mask shared over batch and
     heads (Flax's ``broadcast_dropout=True``); then the output projection
-    over heads·head_dim."""
+    over heads·head_dim.
+
+    Tensor-parallel (``set_tensor_parallel(group, size)``, with the
+    projections' weights already cut by ``parallel/mesh.place_state``): this
+    rank holds ``num_heads / size`` heads, query, key and value are
+    column-parallel (their input's gradient is all-reduced over ``group``)
+    and the output projection row-parallel (its partial products are
+    all-reduced, then its bias added)."""
 
     def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dimension {dim} is not divisible by {num_heads} heads")
         self.num_heads = num_heads
+        self.total_heads = num_heads
+        self.tp_group = None
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
         self.dropout = Dropout(dropout_rate, broadcast_dims=(0, 1))
 
+    def set_tensor_parallel(self, group, size: int) -> None:
+        if self.total_heads % size:
+            raise ValueError(f"{self.total_heads} heads do not split over tensor_parallel={size}")
+        self.tp_group = group
+        self.num_heads = self.total_heads // size
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, t, d = x.shape
+        from multimodal_lipread_torch.parallel.mesh import copy_to_group, reduce_from_group
+
+        b, t, _ = x.shape
         h = self.num_heads
+        hd = self.query.weight.shape[0] // h
+        xin = copy_to_group(x, self.tp_group)
 
         def heads(layer: nn.Linear) -> torch.Tensor:  # (B, heads, T, head_dim)
-            return linear(layer, x).reshape(b, t, h, d // h).transpose(1, 2)
+            return linear(layer, xin).reshape(b, t, h, hd).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        q = q / math.sqrt(d // h)
+        q = q / math.sqrt(hd)
         logits = q @ k.transpose(-1, -2)  # (B, heads, T, T)
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         weights = self.dropout(torch.softmax(logits, dim=-1))
-        out = (weights @ v).transpose(1, 2).reshape(b, t, d)
-        return linear(self.out, out)
+        out = (weights @ v).transpose(1, 2).reshape(b, t, h * hd)
+        if self.tp_group is None:
+            return linear(self.out, out)
+        partial = F.linear(out, self.out.weight.to(out.dtype))
+        return reduce_from_group(partial, self.tp_group) + self.out.bias.to(out.dtype)
 
 
 class SingleQueryAttention(nn.Module):

@@ -83,6 +83,13 @@ class BatchNorm(nn.Module):
     normalization run in float32 (or wider) and the result comes back in
     the input's dtype, as Flax's with ``dtype=bfloat16``. No ``num_batches_tracked``:
     Flax keeps none.
+
+    ``group`` (set by a data-parallel trainer, ``None`` otherwise) takes the
+    batch statistics over the global batch, as the JAX mesh does under
+    GSPMD: per-channel sums and counts are all-reduced for the mean, then
+    the squared deviations for the variance, both through a differentiable
+    ``all_reduce`` so that the backward sees the global statistics too.
+    ``nn.SyncBatchNorm`` is not used: it refuses CPU tensors.
     """
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
@@ -94,6 +101,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -101,12 +109,30 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
                              training=False, eps=self.eps)
             return y.to(x.dtype)
+        if self.group is not None:
+            return self._global_batch_norm(xf).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=[0] + list(range(2, x.ndim)), correction=0)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         y = F.batch_norm(xf, None, None, self.weight, self.bias, training=True, eps=self.eps)
         return y.to(x.dtype)
+
+    def _global_batch_norm(self, xf: torch.Tensor) -> torch.Tensor:
+        from multimodal_lipread_torch.parallel.mesh import all_reduce_sum
+
+        dims = [0] + list(range(2, xf.ndim))
+        shape = [1, -1] + [1] * (xf.ndim - 2)
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), count]), self.group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        dev = xf - mean.view(shape)
+        var = all_reduce_sum((dev * dev).sum(dims), self.group) / n
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return dev * torch.rsqrt(var + self.eps).view(shape) * self.weight.view(shape) + self.bias.view(shape)
 
 
 class LayerNorm(nn.Module):
@@ -143,13 +169,20 @@ class Dropout(nn.Module):
     is set (the trainer sets its own), else from torch's default one.
 
     ``broadcast_dims`` share one mask along those dimensions (Flax's
-    ``nn.Dropout(broadcast_dims=...)``)."""
+    ``nn.Dropout(broadcast_dims=...)``).
+
+    ``data_shard`` = (index, count), set by a data-parallel trainer: ``x``
+    is the ``index``-th of ``count`` equal slices of a global batch along
+    dim 0 (batch-major, so a (B·T, ...) reshape counts too), and the mask
+    is drawn for the global batch and sliced, so that every rank applies
+    the masks of the one-rank run."""
 
     def __init__(self, rate: float, broadcast_dims: Sequence[int] = ()):
         super().__init__()
         self.rate = rate
         self.broadcast_dims = tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
+        self.data_shard = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
@@ -157,7 +190,13 @@ class Dropout(nn.Module):
         if self.generator is None and not self.broadcast_dims:
             return F.dropout(x, self.rate, True)
         shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+        index, count = self.data_shard
+        global_rows = count > 1 and 0 not in self.broadcast_dims
+        if global_rows:
+            shape[0] *= count
         keep = x.new_empty(shape).bernoulli_(1.0 - self.rate, generator=self.generator)
+        if global_rows:
+            keep = keep.narrow(0, index * x.shape[0], x.shape[0])
         return x * keep / (1.0 - self.rate)
 
 
@@ -240,13 +279,27 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
       JAX package).
 
     Modules are visited in registration order, so one seed gives one set
-    of weights.
+    of weights. A module of stacked layers (one with ``fresh_layer()`` and
+    parameters whose leading axis is the layer, e.g. the pipelined BERT's
+    ``encoder``) draws each layer in turn as that unstacked layer, so it
+    starts from the weights of the per-layer model from the same seed.
     """
 
     def draw(p: torch.Tensor, fill) -> None:
         p.copy_(fill(torch.empty(p.shape, dtype=torch.float32)))
 
+    inside_stacks: set = set()
     for m in module.modules():
+        if id(m) in inside_stacks:
+            continue
+        if hasattr(m, "fresh_layer"):
+            inside_stacks.update(id(c) for c in m.modules())
+            stacked = dict(m.named_parameters())
+            for i in range(next(iter(stacked.values())).shape[0]):
+                layer = flax_init_(m.fresh_layer(), generator)
+                for name, p in layer.named_parameters():
+                    stacked[name][i].copy_(p)
+            continue
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear, nn.Embedding)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD

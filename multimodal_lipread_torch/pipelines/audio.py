@@ -41,6 +41,7 @@ from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, scan_glips
 from multimodal_lipread_torch.data.grain_loader import AudioClipSource
 from multimodal_lipread_torch.models.audio import get_audio_model
 from multimodal_lipread_torch.models.frontend import WaveToLogMel
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
     load_audio_datasets,
@@ -61,6 +62,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
     root_dir = cfg.get("dataset.root_dir")
     num_classes = cfg.get("dataset.num_classes", 4)
     input_size = cfg.get("dataset.input_size", 117)

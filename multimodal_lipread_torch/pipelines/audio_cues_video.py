@@ -37,6 +37,7 @@ from multimodal_lipread_torch.config import Config
 from multimodal_lipread_torch.data.cues import embed_cached, load_cue_records, records_by_key
 from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, align_modalities, scan_glips, scan_lip_regions
 from multimodal_lipread_torch.models.audio_cues_video import FROZEN_PARAM_PREFIXES, get_triple_model
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
     compute_logmel_features,
     decode_waveforms,
@@ -89,6 +90,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
 
     datasets, classes = load_triple_datasets(
         cfg.get("dataset.root_dir"),

@@ -31,6 +31,7 @@ import numpy as np
 from multimodal_lipread_torch.config import Config
 from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, align_modalities, scan_glips, scan_lip_regions
 from multimodal_lipread_torch.models.audio_video import get_av_model
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
     compute_logmel_features,
     decode_waveforms,
@@ -79,6 +80,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
 
     input_size = cfg.get("dataset.audio_input_size", 117)
     datasets, classes = load_av_datasets(cfg.get("dataset.root_dir"), resolve_lip_root(cfg),

@@ -10,6 +10,13 @@ and kept uint8 on the host; the trainer and the predictor scale them to
 the video pipeline's ``device_crop`` / ``host_crop_streaming``) read one
 epoch at a time through ``streaming_datasets`` instead, or, with
 ``dataset.loader_backend: native``, through ``native_streaming_datasets``.
+
+Every pipeline's ``main`` starts with ``maybe_initialize_distributed(device)``
+(``parallel/distributed.py``): launched by ``torch.distributed.run`` it
+joins the process group (NCCL on the card, gloo on the CPU) and its
+trainer runs data-parallel over the world; a plain launch runs alone.
+Each rank featurizes the corpus and prints and logs as the JAX package's
+processes do; a streaming dataset reads its own shard of each epoch.
 """
 
 from __future__ import annotations

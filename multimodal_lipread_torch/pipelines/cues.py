@@ -22,9 +22,18 @@ every epoch also writes the rolling one (``<model>_checkpoint.pt``) that
 pipeline writes it only with ``training.rolling_checkpoint``; for
 bert-base it is about 1.25 GB with Adam's moments).
 
-``training.tensor_parallel`` / ``pipeline_parallel`` > 1 (the JAX package's
-sharded BERT) are multi-GPU work not ported yet (ROADMAP.md, Queue 1 #12)
-and raise.
+Under ``torch.distributed.run`` the BERT models take model parallelism,
+as in the JAX pipeline (one or the other, never both):
+
+- ``training.tensor_parallel: K``: a ``(data, model=K)`` mesh and
+  ``BERT_TP_RULES`` (Megatron column/row-parallel layers, each rank
+  running ``num_heads / K`` heads);
+- ``training.pipeline_parallel: S``: a ``(data, stage=S)`` mesh, the
+  ``PipelinedBertClassifier`` and ``BERT_PP_RULES`` (GPipe over
+  ``training.pipeline_microbatches`` microbatches, S by default).
+
+Checkpoints hold the whole model either way (a pipelined one loads into
+``BertClassifier`` through ``models/bert.unstack_bert_layers``).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import numpy as np
 from multimodal_lipread_torch.config import Config
 from multimodal_lipread_torch.data.cues import CueRecord, embed_cached, load_cue_records
 from multimodal_lipread_torch.models.cues import cue_embedding_kind, get_cue_model
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import default_dirs, maybe_plot, model_dtype, parse_cli, trainer_extras
 from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
 
@@ -111,6 +121,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
 
     cue_root = cfg.get("dataset.cue_root") or cfg.get("dataset.root_dir")
     mode = cfg.get("dataset.cue_mode", "emotion")
@@ -122,11 +133,20 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
     if tp > 1 and pp > 1:
         raise ValueError("training.tensor_parallel and training.pipeline_parallel are mutually exclusive — "
                          "pick one 2-D mesh")
+    mesh, partition_rules = None, ()
     if tp > 1:
         if model_name not in ("bert", "bert_lite"):
             raise ValueError("training.tensor_parallel > 1 is only supported for the BERT cue models "
                              f"(got model.name={model_name!r})")
-        raise NotImplementedError("a tensor-parallel BERT is not ported to PyTorch yet (ROADMAP.md, Queue 1 #12)")
+        from multimodal_lipread_torch.models.bert import BERT_TP_RULES
+        from multimodal_lipread_torch.parallel.mesh import get_mesh_2d
+
+        mesh, partition_rules = get_mesh_2d(tp), BERT_TP_RULES
+    elif pp > 1:
+        from multimodal_lipread_torch.models.bert import BERT_PP_RULES
+        from multimodal_lipread_torch.parallel.pipeline import get_mesh_pp
+
+        mesh, partition_rules = get_mesh_pp(pp), BERT_PP_RULES
 
     datasets, classes = load_cue_classification_data(
         cue_root, mode, kind, cache_dir=cfg.get("dataset.cache_dir"),
@@ -137,11 +157,13 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
     )
     num_classes = len(classes)
     model = get_cue_model(model_name, num_classes, dtype=model_dtype(cfg), bert_size=bert_size, pipeline_stages=pp,
-                          input_dim=datasets["train"].inputs[0].shape[-1])
+                          input_dim=datasets["train"].inputs[0].shape[-1], mesh=mesh if pp > 1 else None,
+                          num_microbatches=int(cfg.get("training.pipeline_microbatches", 0)))
     metrics_dir, ckpt_dir = default_dirs(cfg, f"cues_{mode}")
     trainer = Trainer(
         model,
         TrainerConfig(
+            param_partition_rules=partition_rules,
             model_name=model_name,
             num_classes=num_classes,
             class_names=tuple(classes),
@@ -162,6 +184,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             **trainer_extras(cfg),
         ),
         device=device,
+        mesh=mesh,
     )
     result = trainer.fit(datasets["train"], datasets["val"], datasets.get("test"), resume=resume)
     maybe_plot(cfg, metrics_dir)

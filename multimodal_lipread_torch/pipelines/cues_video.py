@@ -40,6 +40,7 @@ from multimodal_lipread_torch.config import Config
 from multimodal_lipread_torch.data.cues import embed_cached, load_cue_records, records_by_key
 from multimodal_lipread_torch.data.glips import SPLITS, scan_lip_regions
 from multimodal_lipread_torch.models.cues_video import FROZEN_PARAM_PREFIXES, get_cues_video_model
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
     load_lip_sequences,
@@ -92,6 +93,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
 
     datasets, classes = load_cue_video_datasets(
         cfg.get("dataset.cue_root") or cfg.get("dataset.root_dir"),

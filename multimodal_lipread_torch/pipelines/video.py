@@ -50,6 +50,7 @@ from multimodal_lipread_torch.data.glips import (
 )
 from multimodal_lipread_torch.data.grain_loader import FullFrameClipSource, HostCropClipSource, LipClipSource
 from multimodal_lipread_torch.models.video import get_video_model
+from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
     default_dirs,
     load_pretrained_backbones,
@@ -90,6 +91,7 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
 
         config = load_config(config)
     cfg = config
+    maybe_initialize_distributed(device)
     backend = cfg.get("dataset.landmark_backend", "auto")
     extra = {}
     if cfg.get("dataset.device_crop", False):

@@ -54,12 +54,17 @@ threaded native ``.npy`` loader.
 - ``export_pipeline`` (CLI ``--export PATH.pt2``): the inference graph of a
   checkpoint through ``torch.export``, saved with ``torch.export.save`` (the
   counterpart of the JAX package's StableHLO export).
-
-Not ported yet (ROADMAP.md): data-parallel serving.
+- data-parallel serving (the JAX ``Predictor.mesh``, CLI
+  ``--data-parallel``): ``Predictor(..., devices=[...])`` holds one replica
+  of the model per device in one process and splits every fixed batch
+  evenly over them (a batch size the replica count does not divide
+  raises); the logits are put back together in order and equal
+  single-device serving. ``replica_devices`` lists every local card.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import itertools
@@ -129,11 +134,22 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return _cast(torch.from_numpy(np.ascontiguousarray(x)).to(device))
 
 
+def replica_devices(device: str = "cuda") -> List[str]:
+    """The devices of data-parallel serving: every local card, or the one
+    CPU for ``device`` "cpu"."""
+    if torch.device(device).type != "cuda":
+        return ["cpu"]
+    if not torch.cuda.device_count():
+        raise ValueError("data-parallel serving on the card: no card visible")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
 @dataclasses.dataclass
 class Predictor:
     """Fixed-batch classifier around a model in eval mode on ``device``,
     run at its compute dtype's precision (``utils/precision.py``: no TF32
-    for a float32 model)."""
+    for a float32 model). With ``devices``, one replica per device (the
+    first takes the model itself) serves an equal share of every batch."""
 
     model: nn.Module
     batch_size: int = 32
@@ -141,20 +157,43 @@ class Predictor:
     # ``(*inputs) -> tuple(inputs)`` on the device batch before the cast,
     # e.g. ops/crop_resize_cuda.device_crop: (frames, boxes) → (lips,)
     device_preproc: Optional[Callable[..., tuple]] = None
+    devices: Optional[Sequence[str]] = None
 
     def __post_init__(self):
+        if self.devices:
+            if self.batch_size % len(self.devices):
+                raise ValueError(
+                    f"serving batch_size={self.batch_size} must be a multiple of the {len(self.devices)} "
+                    "replicas so that every device gets an equal share of the batch")
+            self.device = self.devices[0]
         self.model = self.model.to(self.device).eval()
+        self.replicas = [(self.model, torch.device(self.device))] + [
+            (copy.deepcopy(self.model).to(d).eval(), torch.device(d)) for d in (self.devices or [])[1:]]
 
     @classmethod
     def from_checkpoint(
         cls, model: nn.Module, ckpt_path: str, batch_size: int = 32, device: str = "cuda",
-        device_preproc: Optional[Callable[..., tuple]] = None,
+        device_preproc: Optional[Callable[..., tuple]] = None, devices: Optional[Sequence[str]] = None,
     ) -> "Predictor":
         """Restore a checkpoint (``{epoch, state, val_acc, ...}``) into
         ``model``, which may be built on the ``meta`` device
         (:func:`assign_state`)."""
+        device = devices[0] if devices else device
         return cls(model=assign_state(model, read_checkpoint(ckpt_path)[0], device), batch_size=batch_size,
-                   device=device, device_preproc=device_preproc)
+                   device=device, device_preproc=device_preproc, devices=devices)
+
+    def _forward(self, chunk: Tuple[np.ndarray, ...]) -> List[torch.Tensor]:
+        """Each replica on its equal share of a fixed batch, all launched
+        before any result is read."""
+        share = self.batch_size // len(self.replicas)
+        outs = []
+        for i, (model, device) in enumerate(self.replicas):
+            xs = tuple(torch.from_numpy(np.ascontiguousarray(a[i * share : (i + 1) * share])).to(device)
+                       for a in chunk)
+            if self.device_preproc is not None:  # zero boxes pad to blank frames
+                xs = tuple(self.device_preproc(*xs))
+            outs.append(model(*(_cast(x) for x in xs)))
+        return outs
 
     def predict_logits(self, *inputs: np.ndarray) -> np.ndarray:
         """Any-N inputs → (N, num_classes) float32 logits via fixed-size batches."""
@@ -169,11 +208,8 @@ class Predictor:
                         np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1))
                         for a in chunk
                     )
-                xs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in chunk)
-                if self.device_preproc is not None:  # zero boxes pad to blank frames
-                    xs = tuple(self.device_preproc(*xs))
-                logits = self.model(*(_cast(x) for x in xs))
-                out.append(logits[:k].float().cpu().numpy())
+                logits = torch.cat([o.float().cpu() for o in self._forward(chunk)])
+                out.append(logits[:k].numpy())
         return np.concatenate(out, axis=0) if out else np.zeros((0, 0), np.float32)
 
     def predict(self, *inputs: np.ndarray) -> np.ndarray:
@@ -271,14 +307,16 @@ def build_audio_model(config: Any, num_classes: Optional[int] = None) -> nn.Modu
 
 def predict_audio_clips(
     config: Any, ckpt_path: str, clip_paths: Sequence[str], batch_size: int = 32,
-    device: str = "cuda",
+    device: str = "cuda", devices: Optional[Sequence[str]] = None,
 ) -> List[Dict[str, Any]]:
     """End-to-end audio inference: files → decode → log-mel → classify.
 
     With ``dataset.streaming`` the log-mel runs inside the model's forward
-    (``WaveToLogMel``); otherwise the features are computed first
-    (``compute_logmel_features``). Both run the log-mel kernel on a card.
+    (``WaveToLogMel``), on every replica of ``devices`` where given;
+    otherwise the features are computed first (``compute_logmel_features``,
+    on the first device). Both run the log-mel kernel on a card.
     """
+    device = devices[0] if devices else device
     from multimodal_lipread_torch.pipelines.common import compute_logmel_features, decode_waveforms
 
     waves = decode_waveforms(list(clip_paths))
@@ -290,7 +328,7 @@ def predict_audio_clips(
         )
     model, classes = load_model(functools.partial(build_audio_model, config), ckpt_path, device)
     classes = classes or _class_names(config)
-    logits = Predictor(model=model, batch_size=batch_size, device=device).predict_logits(inputs)
+    logits = Predictor(model=model, batch_size=batch_size, device=device, devices=devices).predict_logits(inputs)
     preds = np.argmax(logits, axis=-1)
     return [
         {
@@ -477,15 +515,22 @@ def _class_names(config: Any) -> Optional[List[str]]:
 
 def predict_clips(
     config: Any, ckpt_path: str, pipeline: str, groups: Sequence[Sequence[str]],
-    batch_size: int = 32, device: str = "cuda",
+    batch_size: int = 32, device: str = "cuda", data_parallel: bool = False,
+    devices: Optional[Sequence[str]] = None,
 ) -> List[Dict[str, Any]]:
     """End-to-end inference for a ported pipeline: per-clip file groups →
-    featurize → classify (see ``_featurize_modalities`` for the groups)."""
+    featurize → classify (see ``_featurize_modalities`` for the groups).
+    ``data_parallel`` serves with a replica on every local card
+    (``replica_devices``), ``devices`` on the devices given."""
+    if data_parallel and not devices:
+        devices = replica_devices(device)
     if pipeline == "audio":
-        return predict_audio_clips(config, ckpt_path, [g[0] for g in groups], batch_size, device=device)
+        return predict_audio_clips(config, ckpt_path, [g[0] for g in groups], batch_size, device=device,
+                                   devices=devices)
+    device = devices[0] if devices else device
     inputs = _featurize_modalities(pipeline, config, groups, device=device)
     model, classes = load_model(functools.partial(build_model, pipeline, config), ckpt_path, device)
-    logits = Predictor(model=model, batch_size=batch_size, device=device).predict_logits(*inputs)
+    logits = Predictor(model=model, batch_size=batch_size, device=device, devices=devices).predict_logits(*inputs)
     preds = np.argmax(logits, axis=-1)
     classes = classes or _class_names(config)
     return [
@@ -591,6 +636,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="one model replica per local card, each serving an equal share of every batch "
+                             "(logits equal single-device serving)")
     parser.add_argument("--export", metavar="PATH.pt2",
                         help="instead of classifying, save the inference graph (torch.export) to PATH")
     parser.add_argument("clips", nargs="*",
@@ -607,7 +655,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not args.clips:
         parser.error("no clips given (and no --export)")
     results = predict_clips(config, args.checkpoint, args.pipeline, [c.split(",") for c in args.clips],
-                            args.batch_size, device=args.device)
+                            args.batch_size, device=args.device, data_parallel=args.data_parallel)
     print(json.dumps(results, indent=2))
 
 

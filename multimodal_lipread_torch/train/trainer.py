@@ -72,10 +72,43 @@ is written from a host snapshot of the epoch's start (the dropout
 generator's state included) labelled ``epoch - 1``, and ``fit`` returns
 ``preempted=True``; ``--resume`` replays that epoch exactly.
 
-Not ported (ROADMAP.md): ``param_partition_rules`` (tensor parallelism,
-Queue 1 #12) and the orbax ``checkpoint_backend`` raise
-``NotImplementedError``. The trainer runs on ``device`` ("cuda" unless the
-caller asks for the CPU).
+Multi-GPU (one process per rank, ``parallel/``), with the JAX trainer's
+semantics on a mesh, so that W ranks give the one-rank run's math:
+
+- data parallelism over the mesh's ``data`` axis (``get_mesh()`` over the
+  world by default): the batch size is padded to a multiple of the world,
+  every rank draws the same global permutation from the one
+  ``default_rng(seed)`` and takes its contiguous slice of each global batch
+  (padding rows at weight 0); the loss is Σ(ce·w) over the slice divided by
+  the global ``max(Σw, 1e-9)`` (all-reduced before the backward), and the
+  gradients are summed, not averaged (DDP with a comm hook that sums;
+  tensor and pipeline parallelism reduce explicitly); BatchNorm takes its
+  statistics over the global batch (``nn.common.BatchNorm.group``); the
+  epoch metrics and evaluations are all-reduced sums. A streaming dataset
+  loads ``batch_size / world`` rows a step from its own shard, and the LR
+  schedule counts ``global_batches``. A preemption on any rank stops every
+  rank at the end of the epoch (all-reduce max), and the ranks agree that
+  the best checkpoint exists (all-reduce min) before the final test.
+- ``param_partition_rules`` (``parallel/mesh.place_state``) cut parameters,
+  and Adam's moments with them, over a ``(data, model)`` mesh (tensor
+  parallelism: modules with ``set_tensor_parallel`` run their
+  collectives) or a ``(data, stage)`` mesh (GPipe,
+  ``parallel/pipeline.py``; mixup, BatchNorm models, remat and
+  ``device_preproc`` are refused there, as in the JAX trainer).
+- Checkpoints hold full tensors whatever the world (cut tensors are put
+  together with ``all_reduce``), and every rank writes them as the JAX
+  trainer's processes do, through pid-unique staging files; a checkpoint
+  written at one world size resumes at another. Every rank prints and logs,
+  as the JAX processes do.
+
+On the card, K > 1 graphed ``steps_per_dispatch`` captures DDP's step with
+its NCCL all-reduce (DDP built on a side stream, its first 11 steps run
+eagerly, the capture thread-local because NCCL's watchdog queries events);
+over gloo it raises ``NotImplementedError`` (ROADMAP.md, Queue 3 #16).
+Not ported: the orbax
+``checkpoint_backend`` (``torch.distributed.checkpoint`` is its
+counterpart, ROADMAP.md Queue 1) raises ``NotImplementedError``. The
+trainer runs on ``device`` ("cuda" unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -89,11 +122,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from multimodal_lipread_torch.data.augment import draw_mixup, mixup
-from multimodal_lipread_torch.nn.common import Dropout, flax_init_
+from multimodal_lipread_torch.nn.common import BatchNorm, Dropout, flax_init_
+from multimodal_lipread_torch.parallel import mesh as pmesh
+from multimodal_lipread_torch.parallel.distributed import is_initialized, world_size
 from multimodal_lipread_torch.train.checkpoint import (
     load_checkpoint,
     load_module_state,
@@ -171,7 +207,7 @@ class TrainerConfig:
     steps_per_dispatch: int = 1
     # SIGTERM/SIGINT: finish the step, checkpoint the epoch's start, return
     handle_preemption: bool = False
-    # tensor parallelism: not ported (UNPORTED_KNOBS)
+    # (regex, spec) rules that cut parameters over the mesh (parallel/mesh.py)
     param_partition_rules: Tuple[Any, ...] = ()
     # ``(*inputs) -> tuple(inputs)`` on the device batch before the cast
     device_preproc: Optional[Callable[..., tuple]] = None
@@ -183,11 +219,10 @@ class TrainerConfig:
 # TrainerConfig knobs of the JAX trainer that the port does not run, with
 # the value that leaves them off
 UNPORTED_KNOBS: Dict[str, Any] = {
-    "param_partition_rules": (),
     "checkpoint_backend": "msgpack",
 }
-_UNPORTED_WHERE = {"param_partition_rules": "Queue 1 #12: tensor parallelism",
-                   "checkpoint_backend": "Queue 1: the orbax backends have no counterpart"}
+_UNPORTED_WHERE = {"checkpoint_backend": "Queue 1: the orbax backends' counterpart is torch.distributed.checkpoint "
+                                         "with async_save"}
 
 
 def check_ported(config: TrainerConfig) -> None:
@@ -208,10 +243,12 @@ class EpochMetrics:
 
 class _Metrics:
     """Sums of (Σ loss·w, correct, Σ weights, Σ w) over an epoch's batches,
-    kept on the device in float64 and read once."""
+    kept on the device in float64 and read once (all-reduced over
+    ``group``, the data-parallel ranks, where there are several)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, group=None):
         self.sums = torch.zeros(4, dtype=torch.float64, device=device)
+        self.group = group
 
     def push(self, stats: torch.Tensor) -> None:
         """Add one step's stats, or a (K, 4) group's rows in order (a
@@ -222,6 +259,8 @@ class _Metrics:
             self.sums = torch.cat([self.sums[None], stats.double()]).cumsum(0)[-1]
 
     def result(self) -> EpochMetrics:
+        if self.group is not None:
+            dist.all_reduce(self.sums, group=self.group)
         loss_sum, correct, count, wsum = self.sums.tolist()
         return EpochMetrics(loss=loss_sum / max(wsum, 1e-9), acc=100.0 * correct / max(count, 1))
 
@@ -312,7 +351,10 @@ class _StepGroupGraph:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, stream=stream):
+        # thread-local under a process group: NCCL's watchdog thread queries
+        # its events while this thread captures
+        mode = "thread_local" if dist.is_initialized() else "global"
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode=mode):
             self.out = torch.stack([step(self.idx[i], self.w[i]) for i in range(k)])
         torch.cuda.current_stream(device).wait_stream(stream)
 
@@ -325,16 +367,40 @@ class _StepGroupGraph:
         return self.out
 
 
-class Trainer:
-    """Single-device trainer (``device`` "cuda" unless the caller asks for
-    the CPU)."""
+def _sum_hook(group, bucket):
+    """DDP comm hook: the bucket's gradients summed over ``group`` (DDP's
+    own hook averages them, which the global-Σw loss must not)."""
+    fut = dist.all_reduce(bucket.buffer(), group=group, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
 
-    def __init__(self, model: nn.Module, config: TrainerConfig, device: str = "cuda"):
+
+class Trainer:
+    """The trainer of one rank (``device`` "cuda" unless the caller asks for
+    the CPU) on ``mesh`` (``parallel/mesh.py``; by default the 1-D data
+    mesh over the world, ``None`` without a process group)."""
+
+    def __init__(self, model: nn.Module, config: TrainerConfig, device: str = "cuda", mesh: Any = None):
         check_ported(config)
         self.config = config
         self.device = torch.device(device)
         self.model = model.to(self.device)
-        self.batch_size = config.batch_size
+        self.mesh = mesh if mesh is not None else pmesh.get_mesh()
+        self.world = world_size() if self.mesh is not None else 1
+        self._data_size = pmesh.axis_size(self.mesh, pmesh.DATA_AXIS)
+        self._data_index = pmesh.axis_index(self.mesh, pmesh.DATA_AXIS)
+        self._data_group = pmesh.axis_group(self.mesh, pmesh.DATA_AXIS)
+        self._pp = pmesh.axis_size(self.mesh, "stage") > 1
+        self._rules = tuple(config.param_partition_rules)
+        # pad the global batch so that it splits evenly over the ranks
+        self.batch_size = -(-config.batch_size // self.world) * self.world
+        self._check_parallel()
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = self._data_group
+        self._ddp: Optional[nn.Module] = None
+        self._ddp_steps = 0  # steps taken through DDP (it times its first 10 with CUDA events)
+        self._full_shapes: Dict[str, Tuple[int, ...]] = {}
+        self._opt_names: List[str] = []
         self.compute_dtype = compute_dtype(model)
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0  # optimizer steps taken
@@ -356,6 +422,7 @@ class Trainer:
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
+                m.data_shard = (self._data_index, self._data_size)
         # per-step LR function, built in fit() once the step count is known
         self._lr_step_fn: Optional[Callable[[int], float]] = None
         # keyword arguments every forward receives (set_apply_kwargs)
@@ -365,6 +432,145 @@ class Trainer:
         self._device_data: Dict[int, Tuple[Any, Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]] = {}
         self._graphs: Dict[Tuple[str, int], _StepGroupGraph] = {}
         self._preempted = False
+
+    # ------------------------------------------------------------ parallel
+
+    def _check_parallel(self) -> None:
+        """The JAX trainer's refusals under pipeline parallelism, and mixup
+        over several data-parallel ranks (it mixes rows across the global
+        batch, which no rank holds)."""
+        cfg = self.config
+        if cfg.mixup_alpha > 0 and self._data_size > 1:
+            raise NotImplementedError("mixup with several data-parallel ranks: the JAX trainer mixes rows of the "
+                                      "global batch, which no rank holds (ROADMAP.md, Queue 3 #16)")
+        if not self._pp:
+            return
+        if not self._rules:
+            raise ValueError("pipeline parallelism needs param_partition_rules that cut the stacked layers "
+                             "over 'stage' (models/bert.BERT_PP_RULES)")
+        if cfg.mixup_alpha > 0:
+            raise NotImplementedError("mixup is not supported with pipeline parallelism")
+        if cfg.remat:
+            raise NotImplementedError("remat is not supported with pipeline parallelism")
+        if cfg.device_preproc is not None:
+            raise NotImplementedError("device_preproc is not supported with pipeline parallelism")
+        if any(isinstance(m, BatchNorm) for m in self.model.modules()):
+            raise NotImplementedError("BatchNorm models are not supported with pipeline parallelism")
+
+    def _shard_model(self) -> None:
+        """Cut the parameters by ``param_partition_rules`` and turn on the
+        tensor-parallel modules' collectives (outermost modules only)."""
+        if not self._rules:
+            return
+        params = dict(self.model.named_parameters())
+        if not self._full_shapes:
+            self._full_shapes = {n: tuple(p.shape) for n, p in params.items()}
+        local = pmesh.place_state(self.mesh, {n: p.detach() for n, p in params.items()}, self._rules)
+        for name, p in params.items():
+            if local[name].shape != p.shape:
+                p.data = local[name].clone()
+        size = pmesh.axis_size(self.mesh, pmesh.MODEL_AXIS)
+        if size > 1:
+            group = pmesh.axis_group(self.mesh, pmesh.MODEL_AXIS)
+            done: set = set()
+            for m in self.model.modules():
+                if id(m) not in done and hasattr(m, "set_tensor_parallel"):
+                    m.set_tensor_parallel(group, size)
+                    done.update(id(c) for c in m.modules())
+
+    def _unshard_model(self) -> None:
+        """Give every cut parameter its full shape again (values undefined),
+        before a fresh initialization."""
+        for name, p in self.model.named_parameters():
+            full = self._full_shapes.get(name)
+            if full is not None and tuple(p.shape) != full:
+                p.data = torch.empty(full, dtype=p.dtype, device=p.device)
+
+    def _train_module(self) -> nn.Module:
+        """The module the train forward calls: under a process group, DDP
+        over the data axis for plain data parallelism (a world of one
+        included: its reduction is then the identity), built at the first
+        step, after the parameters and their ``requires_grad`` are final;
+        else the model. Buffers are not broadcast: BatchNorm's global
+        statistics keep them equal on every rank."""
+        if self.mesh is None or self._rules:
+            return self.model
+        if self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            group = self.mesh.get_group(pmesh.DATA_AXIS)
+            cuda = self.device.type == "cuda"
+            # built on a side stream, as CUDA graphs of DDP steps need
+            with torch.cuda.stream(torch.cuda.Stream(self.device)) if cuda else contextlib.nullcontext():
+                self._ddp = DistributedDataParallel(
+                    self.model, device_ids=[self.device.index if self.device.index is not None
+                                            else torch.cuda.current_device()] if cuda else None,
+                    process_group=group, broadcast_buffers=False)
+            self._ddp.register_comm_hook(group, _sum_hook)
+            # no runtime statistics after the first 10 steps: their CUDA
+            # timing events cannot be recorded inside a graph capture
+            self._ddp._set_ddp_runtime_logging_sample_rate(2**31 - 1)
+        self._ddp_steps += 1
+        return self._ddp
+
+    def _global_wsum(self, wsum: torch.Tensor) -> torch.Tensor:
+        """Σw over every data-parallel rank's slice."""
+        if self._data_group is None:
+            return wsum
+        total = wsum.detach().clone()
+        dist.all_reduce(total, group=self._data_group)
+        return total
+
+    def _shard_rows(self, idx: np.ndarray, weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """This rank's contiguous slice of a global batch."""
+        step = len(idx) // self._data_size
+        sl = slice(self._data_index * step, (self._data_index + 1) * step)
+        return idx[sl], weights[sl]
+
+    def _any_rank(self, flag: bool, op=None) -> bool:
+        """``flag`` agreed over every rank: the max (any), or the min with
+        ``op=MIN`` (all)."""
+        if self.world <= 1:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0], device=self.device)
+        dist.all_reduce(t, op=op or dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def _export_state(self, opt_to_cpu: bool = False) -> Dict[str, Any]:
+        """``{params, batch_stats, opt_state, step}`` with full tensors (cut
+        ones put together on every rank), as a checkpoint holds them."""
+        state = module_state(self.model)
+        opt = self.optimizer.state_dict()
+        if self._rules:
+            state["params"] = pmesh.gather_state(self.mesh, {k: v.to(self.device) for k, v in state["params"].items()},
+                                                 self._rules, self._full_shapes)
+            state["params"] = {k: v.cpu() for k, v in state["params"].items()}
+            opt = {**opt, "state": {i: self._map_moments(i, s, gather=True) for i, s in opt["state"].items()}}
+        if opt_to_cpu or self._rules:
+            opt = _to_cpu(opt)
+        return {**state, "opt_state": opt, "step": self.step}
+
+    def _map_moments(self, index: int, entry: Dict[str, Any], gather: bool) -> Dict[str, Any]:
+        """Adam's moments of parameter ``index`` cut (or put together) as
+        its parameter is."""
+        name = self._opt_names[index]
+        out = dict(entry)
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in entry:
+                t = entry[key].to(self.device)
+                if gather:
+                    out[key] = pmesh.gather_state(self.mesh, {name: t}, self._rules, self._full_shapes)[name]
+                else:
+                    out[key] = pmesh.place_state(self.mesh, {name: t}, self._rules)[name].clone()
+        return out
+
+    def load_weights(self, state: Dict[str, Any]) -> None:
+        """Full ``{params, batch_stats}`` (``state_dict`` names) into the
+        model, cut by the partition rules where it is."""
+        params = state["params"]
+        if self._rules:
+            params = pmesh.place_state(self.mesh, params, self._rules)
+        load_module_state(self.model, {"params": params, "batch_stats": state["batch_stats"]})
 
     # ------------------------------------------------------------ setup
 
@@ -391,12 +597,18 @@ class Trainer:
         return [p for n, p in self.model.named_parameters() if n not in frozen]
 
     def init_state(self) -> nn.Module:
-        """Redraw the parameters with Flax's initializers from ``seed`` and
+        """Redraw the parameters with Flax's initializers from ``seed`` (the
+        whole model on every rank, then cut by the partition rules) and
         start a fresh Adam; returns the model."""
+        self._unshard_model()
         flax_init_(self.model, torch.Generator().manual_seed(self.config.seed))
+        self._shard_model()
         lr = self.config.learning_rate
+        trainable = self.trainable_parameters()
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        self._opt_names = [names[id(p)] for p in trainable]
         self.optimizer = torch.optim.Adam(
-            self.trainable_parameters(),
+            trainable,
             lr=torch.tensor(lr, dtype=torch.float32, device=self.device) if self._capturable else lr,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=self.config.weight_decay, capturable=self._capturable,
         )
@@ -486,8 +698,10 @@ class Trainer:
         return contextlib.nullcontext(), recompute()
 
     def _train_forward(self, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        module = self._train_module()
+
         def forward(*xs):
-            return self.model(*xs, **self._apply_kwargs)
+            return module(*xs, **self._apply_kwargs)
 
         if not self.config.remat:
             return forward(*inputs)
@@ -497,13 +711,17 @@ class Trainer:
 
     def train_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on a device batch. Returns the device tensor
-        (Σ loss·w, correct, Σ weights, Σ w); nothing is read back."""
+        """One optimizer step on this rank's slice of a batch. Returns the
+        device tensor (Σ loss·w, correct, Σ weights, Σ w) of the slice;
+        nothing is read back."""
         self.model.train()
+        if self._pp:
+            return self._pp_train_step(inputs, labels, weights)
         with model_precision(self.compute_dtype):
             xs = self._prepare_inputs(inputs)
             w = self._example_weights(labels, weights)
             wsum = w.sum()
+            global_wsum = self._global_wsum(wsum)
             target = labels
             if self.config.mixup_alpha > 0:
                 lam, perm = draw_mixup(self.dropout_generator, labels.shape[0], self.config.mixup_alpha, self.device)
@@ -514,14 +732,40 @@ class Trainer:
                 xs = tuple(torch.where(full, m, x) for m, x in zip(mixed, xs))
                 target = torch.where(full, mixed_onehot, onehot)
             logits = self._train_forward(xs).float()
-            loss = (F.cross_entropy(logits, target, reduction="none") * w).sum() / wsum.clamp_min(1e-9)
+            ce_w = (F.cross_entropy(logits, target, reduction="none") * w).sum()
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            (ce_w / global_wsum.clamp_min(1e-9)).backward()
+            if self._rules and self._data_group is not None:
+                pmesh.all_reduce_flat([p.grad for p in self._grads()], self._data_group)
         self.optimizer.step()
         self.step += 1
         with torch.no_grad():
             correct = ((logits.argmax(-1) == labels).float() * weights).sum()
-            return torch.stack([loss.detach() * wsum, correct, weights.sum(), wsum])
+            return torch.stack([ce_w.detach(), correct, weights.sum(), wsum])
+
+    def _grads(self) -> List[nn.Parameter]:
+        """Adam's parameters, a zero gradient given to any that got none."""
+        params = [p for group in self.optimizer.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return params
+
+    def _pp_train_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+        """The GPipe step (``parallel/pipeline.py``) and Adam."""
+        from multimodal_lipread_torch.parallel.pipeline import gpipe_train_step, reduce_grads
+
+        with model_precision(self.compute_dtype):
+            (ids,) = self._prepare_inputs(inputs)
+            w = self._example_weights(labels, weights)
+            self.optimizer.zero_grad(set_to_none=True)
+            stats = gpipe_train_step(self.model, ids, labels, weights, w, self._global_wsum(w.sum()), self.mesh,
+                                     self.model.num_microbatches)
+            reduce_grads(self.model, self.mesh)
+        self.optimizer.step()
+        self.step += 1
+        return stats
 
     @torch.no_grad()
     def eval_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
@@ -550,7 +794,8 @@ class Trainer:
     def _index_batches_host(self, n: int, shuffle: bool, rng: np.random.Generator):
         """Yield (int64 indices, float32 weights) of fixed-size batches over
         ``n`` examples; a short last batch is padded with real examples at
-        weight 0."""
+        weight 0. Every rank draws the same global batch and keeps its
+        slice."""
         order = rng.permutation(n) if shuffle else np.arange(n)
         bs = self.batch_size
         for start in range(0, n, bs):
@@ -561,7 +806,7 @@ class Trainer:
             if k < bs:
                 fill = order[: bs - k] if n >= bs else np.resize(order, bs - k)
                 idx = np.concatenate([idx, fill.astype(idx.dtype)])
-            yield idx.astype(np.int64), weights
+            yield self._shard_rows(idx.astype(np.int64), weights)
 
     def host_batches(self, ds: ArrayDataset, shuffle: bool, rng: np.random.Generator):
         """Yield fixed-size numpy batches ``(inputs, labels, weights)``; a
@@ -569,12 +814,23 @@ class Trainer:
         for idx, weights in self._index_batches_host(len(ds), shuffle, rng):
             yield tuple(a[idx] for a in ds.inputs), ds.labels[idx].astype(np.int64), weights
 
+    def stream_batch_rows(self) -> int:
+        """Rows a rank loads per step from its own shard of a streaming
+        dataset: ``batch_size / world``."""
+        if self.batch_size % self.world:
+            raise ValueError(f"batch_size {self.batch_size} must be divisible by the world size {self.world} "
+                             "for streaming (each rank loads batch_size/world records per step)")
+        if self._data_size != self.world:
+            raise NotImplementedError("streaming feeds data parallelism only, not tensor or pipeline parallelism")
+        return self.batch_size // self.world
+
     def stream_batches(self, ds: Any, epoch: int, shuffle: bool):
-        """Yield fixed-size numpy batches of a ``StreamingDataset``'s epoch:
-        a short loader batch is padded by repeating its own rows
-        (``np.resize``) at weight 0, and a shard with fewer batches than the
-        largest emits all-weight-0 batches up to ``global_batches``."""
-        bs = self.batch_size
+        """Yield fixed-size numpy batches of a ``StreamingDataset``'s epoch
+        (this rank's shard, ``stream_batch_rows`` a step): a short loader
+        batch is padded by repeating its own rows (``np.resize``) at weight
+        0, and a shard with fewer batches than the largest emits
+        all-weight-0 batches up to ``global_batches``."""
+        bs = self.stream_batch_rows()
         emitted, last = 0, None
         for inputs, labels in ds.epoch_batches(epoch, shuffle, bs):
             k = len(labels)
@@ -655,7 +911,7 @@ class Trainer:
         """K steps of ``step`` on one group: eagerly on the CPU; on the card
         through the dataset's graph, captured after running the first group
         for real. Returns the group's (K, 4) stats."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or (kind == "train" and self._ddp_warming()):
             return torch.stack([step(*self._to_device(i, w)) for i, w in zip(idxs, ws)])
         key = (kind, id(ds))
         graph = self._graphs.get(key)
@@ -670,6 +926,12 @@ class Trainer:
             self.step += len(idxs)
         return graph.replay(idxs, ws)
 
+    def _ddp_warming(self) -> bool:
+        """Whether the train steps go through DDP and it has taken fewer
+        than 11: DDP times its first 10 steps with CUDA events, which a
+        graph capture cannot record, so groups run eagerly until then."""
+        return self.mesh is not None and not self._rules and self._ddp_steps < 11
+
     def _graphed(self, ds: Any) -> bool:
         """Whether training on ``ds`` dispatches K steps at a time."""
         cfg = self.config
@@ -680,17 +942,21 @@ class Trainer:
 
     def train_single_batch(self, ds: ArrayDataset, seed: int = 0) -> float:
         """One optimizer step on the first (unshuffled) batch of ``ds``;
-        returns its loss."""
+        returns its loss (over every rank's slice)."""
         self.ensure_initialized()
         self.dropout_generator.manual_seed(seed)
         inputs, labels, weights = next(self.batches(ds, False, np.random.default_rng(seed)))
-        loss_sum, _correct, _n, wsum = self.train_step(inputs, labels, weights).tolist()
+        stats = self.train_step(inputs, labels, weights).double()
+        if self._data_group is not None:
+            dist.all_reduce(stats, group=self._data_group)
+        loss_sum, _correct, _n, wsum = stats.tolist()
         return loss_sum / max(wsum, 1e-9)
 
     def train_epoch(self, ds: Any, rng: np.random.Generator, epoch: int = 0) -> EpochMetrics:
         """One epoch of ``ds``; stops between dispatches once a preemption
-        is requested."""
-        acc = _Metrics(self.device)
+        is requested (in a world of one: several ranks finish the epoch and
+        agree in ``fit``)."""
+        acc = _Metrics(self.device, self._data_group)
         if isinstance(ds, ArrayDataset) and self.config.device_resident:
             data, labels_all = self._device_dataset(ds)
 
@@ -699,25 +965,25 @@ class Trainer:
 
             if self._graphed(ds):
                 for kind, payload in self._index_groups(len(ds), True, rng):
-                    if self._preempted:
+                    if self._preempted and self.world == 1:
                         break
                     if kind == "group":
                         acc.push(self._run_group("train", ds, step, *payload))
                         continue
                     for idx, weights in payload:
-                        if self._preempted:
+                        if self._preempted and self.world == 1:
                             break
                         acc.push(step(*self._to_device(idx, weights)))
                 return acc.result()
             for idx, weights in self._index_batches_host(len(ds), True, rng):
-                if self._preempted:
+                if self._preempted and self.world == 1:
                     break
                 if self._lr_step_fn is not None:
                     self._set_lr(self._lr_step_fn(self.step))
                 acc.push(step(*self._to_device(idx, weights)))
             return acc.result()
         for inputs, labels, weights in self.batches(ds, True, rng, epoch):
-            if self._preempted:
+            if self._preempted and self.world == 1:
                 break
             if self._lr_step_fn is not None:
                 self._set_lr(self._lr_step_fn(self.step))
@@ -725,7 +991,7 @@ class Trainer:
         return acc.result()
 
     def evaluate(self, ds: Any) -> EpochMetrics:
-        acc = _Metrics(self.device)
+        acc = _Metrics(self.device, self._data_group)
         rng = np.random.default_rng(0)
         if isinstance(ds, ArrayDataset) and self.config.device_resident:
             data, labels_all = self._device_dataset(ds)
@@ -766,8 +1032,7 @@ class Trainer:
     def checkpoint_tree(self, epoch: int, val_acc: float, best_val_acc: float) -> Dict[str, Any]:
         return {
             "epoch": epoch,
-            "state": {**module_state(self.model), "opt_state": self.optimizer.state_dict(),
-                      "step": self.step},
+            "state": self._export_state(),
             "val_acc": float(val_acc),
             **self._scheduler_fields(),
             "best_val_acc": float(best_val_acc),
@@ -783,16 +1048,18 @@ class Trainer:
         """The trainer's state on the host: ``state`` as a checkpoint holds
         it (parameters, statistics, Adam, step count) and the dropout
         generator's state."""
-        return {"state": {**module_state(self.model), "opt_state": _to_cpu(self.optimizer.state_dict()),
-                          "step": self.step},
-                "dropout_rng": self.dropout_generator.get_state()}
+        return {"state": self._export_state(opt_to_cpu=True), "dropout_rng": self.dropout_generator.get_state()}
 
     def restore_state(self, state: Dict[str, Any]) -> None:
         """Load ``{params, batch_stats, opt_state, step}`` into the model and
-        the optimizer (a state written with or without ``capturable``)."""
+        the optimizer (a state written with or without ``capturable``, at
+        any world size: full tensors, cut here by the partition rules)."""
         self.ensure_initialized()
-        load_module_state(self.model, state)
-        self.optimizer.load_state_dict(state["opt_state"])
+        self.load_weights(state)
+        opt = state["opt_state"]
+        if self._rules:
+            opt = {**opt, "state": {i: self._map_moments(int(i), s, gather=False) for i, s in opt["state"].items()}}
+        self.optimizer.load_state_dict(opt)
         self._conform_optimizer()
         self.step = int(state["step"])
         self._graphs.clear()  # they hold the replaced optimizer state
@@ -803,7 +1070,7 @@ class Trainer:
         block and its own again after it (copied in place, so graphs stay
         valid)."""
         own = {k: v.clone() for k, v in self.model.state_dict().items()}
-        load_module_state(self.model, state)
+        self.load_weights(state)
         try:
             yield
         finally:
@@ -841,7 +1108,9 @@ class Trainer:
         if isinstance(train_ds, ArrayDataset):
             steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
         else:
-            steps_per_epoch = max(1, int(train_ds.global_batches(self.batch_size)))
+            # every rank's schedule: the collective step count, not its
+            # own shard's length (ceil-split shards differ by a record)
+            steps_per_epoch = max(1, int(train_ds.global_batches(self.stream_batch_rows())))
         if cfg.lr_schedule == "linear_warmup":
             # per step, after the step count: the first step trains at lr 0
             total = steps_per_epoch * cfg.epochs
@@ -896,6 +1165,12 @@ class Trainer:
             raise NotImplementedError(
                 "training.remat with steps_per_dispatch > 1 on the card: the recompute sets the dropout "
                 "generator's state from the host, which a CUDA graph cannot capture (ROADMAP.md, Queue 3 #15)"
+            )
+        if (self.mesh is not None and self.device.type == "cuda" and self._graphed(train_ds)
+                and dist.get_backend() != "nccl"):
+            raise NotImplementedError(
+                f"training.steps_per_dispatch > 1 over {dist.get_backend()} on the card: its collectives run on "
+                "the host and cannot be captured in a CUDA graph (ROADMAP.md, Queue 3 #16)"
             )
         self._preempted = False
         restore_signals = self._install_preemption_handlers() if cfg.handle_preemption else (lambda: None)
@@ -957,6 +1232,10 @@ class Trainer:
                 tr = self._train_epoch_traced(train_ds, data_rng, epoch)
             else:
                 tr = self.train_epoch(train_ds, data_rng, epoch)
+            if cfg.handle_preemption and self.world > 1:
+                # every rank must stop, or the others hang in the next
+                # collective: any rank's preemption preempts them all
+                self._preempted = self._any_rank(self._preempted)
             if self._preempted:
                 # without handle_preemption there is no snapshot: the current
                 # state is saved (a valid checkpoint, an approximate replay)
@@ -1016,7 +1295,9 @@ class Trainer:
                     save_checkpoint(rolling_path, ckpt)
 
         result: Dict[str, Any] = {"history": history, "best_val_acc": best_val_acc}
-        if test_ds is not None and os.path.exists(best_path):
+        # evaluate() is collective: every rank takes the same branch
+        have_best = self._any_rank(os.path.exists(best_path), op=dist.ReduceOp.MIN)
+        if test_ds is not None and have_best:
             with self._weights_of(load_checkpoint(best_path)["state"]):
                 final = self.evaluate(test_ds)
             self.logger.log_final(final.loss, final.acc)

@@ -30,7 +30,10 @@ The inverse of the JAX package's ``utils/torch_import.py``: it takes
   ``..._l0``;
 - a bare parameter leaf (the AV late-fusion models' 0-d ``alpha``, the
   audio_cues late fusion's (2,) ``attn_weights``) → the tensor under its
-  own name.
+  own name;
+- the ``PipelinedBertClassifier``'s stacked ``encoder`` (every leaf with a
+  leading layer axis) → ``encoder.*`` tensors of the same leading axis,
+  each layer converted as a ``BertLayer``'s.
 
 Nothing here imports JAX: the caller converts to numpy first.
 """
@@ -108,10 +111,35 @@ def _walk(p: Any, s: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor
         _walk(child, s.get(key, {}), f"{prefix}{key}.", out, key)
 
 
+def _layer(tree: Any, i: int) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _stacked(encoder: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A stacked encoder → ``encoder.*``, converted layer by layer."""
+    first = encoder
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    layers = []
+    for i in range(np.asarray(first).shape[0]):
+        out: Dict[str, torch.Tensor] = {}
+        _walk(_layer(encoder, i), {}, "encoder.", out)
+        layers.append(out)
+    return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+
+
 def state_dict_from_jax(
     params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
 ) -> Dict[str, torch.Tensor]:
     """JAX ``params``/``batch_stats`` (numpy leaves) → the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    _walk(params, batch_stats or {}, "", out)
+    rest = dict(params)
+    encoder = rest.pop("encoder", None)
+    if isinstance(encoder, Mapping) and "attention" in encoder:
+        out.update(_stacked(encoder))
+    elif encoder is not None:
+        rest["encoder"] = encoder
+    _walk(rest, batch_stats or {}, "", out)
     return out

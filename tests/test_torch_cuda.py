@@ -19,7 +19,11 @@ exactly and loading into a host-batching trainer and back, and ``remat``
 refused under graphs; the log-mel operator ``mlt::log_mel`` launching the
 kernel, an exported (``torch.export``) wave model launching it, and
 ``serving.load_test`` with the device crop launching the crop kernel once a
-request.
+request; a world-1 NCCL data-parallel step against the step without a
+process group, and BatchNorm's global statistics over two gloo ranks
+sharing the card against one rank, and CUDA graphs of DDP steps with the
+NCCL all-reduce captured against eager steps (ranks from
+``tests/torch_dist_worker.py``).
 
 Every test here needs an NVIDIA card and ``nvcc`` and carries the ``cuda``
 marker; without a card each skips (decided inside the ``cuda_device``
@@ -827,3 +831,54 @@ def test_load_test_with_the_device_crop_launches_the_kernel(cuda_device):
     before = crop_resize_cuda.launch_count
     r = serving.load_test(predictor, (frames, boxes), num_threads=3, requests_per_thread=4)
     assert crop_resize_cuda.launch_count == before + 13 and r["requests"] == 12 and r["p99_ms"] > 0
+
+
+def _mlp_weights():
+    from torch_dist_worker import BnMlp
+
+    from multimodal_lipread_torch.nn.common import flax_init_
+
+    model = flax_init_(BnMlp(), torch.Generator().manual_seed(7))
+    params = {n for n, _ in model.named_parameters()}
+    sd = model.state_dict()
+    return {"params": {k: v for k, v in sd.items() if k in params},
+            "batch_stats": {k: v for k, v in sd.items() if k not in params}}
+
+
+@pytest.mark.cuda
+def test_world_1_nccl_ddp_steps_equal_the_steps_without_a_group(cuda_device, tmp_path):
+    from torch_dist_worker import mlp_steps, run_ranks
+
+    inputs = {"weights": _mlp_weights(), "lr": 1e-2, "n": 40}
+    (ranked,) = run_ranks("mlp_steps", 1, str(tmp_path / "nccl"), inputs, device="cuda", backend="nccl")
+    alone = mlp_steps(str(tmp_path / "alone"), "alone", inputs, "cuda")
+    np.testing.assert_allclose(ranked["loss"], alone["loss"], atol=1e-6, rtol=0)
+    for g1, g2 in zip(ranked["grads"] + ranked["stats"], alone["grads"] + alone["stats"]):
+        for name in g2:
+            np.testing.assert_allclose(g1[name].numpy(), g2[name].numpy(), atol=1e-6, rtol=0, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_batchnorm_over_two_gloo_ranks_on_the_card_equals_one_rank(cuda_device, tmp_path):
+    from torch_dist_worker import mlp_steps, run_ranks
+
+    inputs = {"weights": _mlp_weights(), "lr": 0.0, "n": 24}  # the second batch holds 8 padding rows
+    two = run_ranks("mlp_steps", 2, str(tmp_path / "gloo"), inputs, device="cuda", backend="gloo")
+    one = mlp_steps(str(tmp_path / "one"), "one", inputs, "cuda")
+    for ranked in two:
+        np.testing.assert_allclose(ranked["loss"], one["loss"], atol=1e-6, rtol=0)
+        for g1, g2 in zip(ranked["grads"] + ranked["stats"], one["grads"] + one["stats"]):
+            for name in g2:
+                np.testing.assert_allclose(g1[name].numpy(), g2[name].numpy(), atol=1e-6, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_graphed_ddp_steps_over_nccl_equal_eager_ones(cuda_device, tmp_path):
+    from torch_dist_worker import run_ranks
+
+    torch.backends.cudnn.deterministic = True
+    (ranked,) = run_ranks("graph_steps", 1, str(tmp_path / "graphs"), {"weights": _mlp_weights()}, device="cuda",
+                          backend="nccl")
+    assert ranked["graphs4"] >= 1  # captured after DDP's 11 eager steps, then replayed
+    assert ranked[4] == ranked[1]
+

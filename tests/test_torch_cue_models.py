@@ -89,10 +89,19 @@ def test_registry_matches_jax():
 def test_pipeline_stages_raise():
     with pytest.raises(ValueError, match="only supported for the BERT"):
         pcues.get_cue_model("dense_nn", 4, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        pcues.get_cue_model("bert", 4, bert_size="base", pipeline_stages=4)
     with pytest.raises(ValueError):
         jcues.get_cue_model("dense_nn", 4, pipeline_stages=2)
+    # BERT takes stages that divide its layers, as the JAX registry's
+    with pytest.raises(ValueError, match="divisible"):
+        pcues.get_cue_model("bert", 4, bert_size="small", pipeline_stages=3)
+    with pytest.raises(ValueError, match="divisible"):
+        jcues.get_cue_model("bert", 4, bert_size="small", pipeline_stages=3)
+    from multimodal_lipread_torch.models.bert import PipelinedBertClassifier
+
+    model = pcues.get_cue_model("bert", 4, bert_size="small", pipeline_stages=4)
+    assert isinstance(model, PipelinedBertClassifier) and model.num_stages == 4
+    with pytest.raises(ValueError, match="requires a"):  # its forward needs the (data, stage) mesh
+        model(torch.ones(4, 6, dtype=torch.long))
 
 
 def test_multi_kernel_conv_takes_the_max_over_time():

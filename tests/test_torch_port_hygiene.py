@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``multimodal_lipread_torch``,
-and neither ``chip_smoke.py`` nor ``tests/test_torch_cuda.py``, imports JAX, Flax, Optax or the JAX package, and
+and neither ``chip_smoke.py``, ``tests/test_torch_cuda.py`` nor the multi-process tests'
+ranks (``tests/torch_dist_worker.py``), imports JAX, Flax, Optax or the JAX package, and
 ``chip_smoke.py`` needs none of the packages the card machine may lack."""
 
 import ast
@@ -17,8 +18,10 @@ def _port_files():
     out = []
     for root, _dirs, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    # chip_smoke.py and the card-only tests run where JAX is not installed
-    return sorted(out) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_cuda.py")]
+    # chip_smoke.py and the card-only tests run where JAX is not installed;
+    # the multi-process tests' ranks must not import it either
+    return sorted(out) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_cuda.py"),
+                          os.path.join(REPO, "tests", "torch_dist_worker.py")]
 
 
 def _imports(path, top_level_only=False):

@@ -309,7 +309,7 @@ def test_train_single_batch_and_bf16_keep_float32_parameters(tmp_path):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_KNOBS))
 def test_unported_knob_raises(tmp_path, name):
-    on = {"param_partition_rules": ((".*", ("model",)),), "checkpoint_backend": "orbax"}
+    on = {"checkpoint_backend": "orbax"}
     cfg = TrainerConfig(model_name="m", num_classes=NUM_CLASSES, metrics_dir=str(tmp_path / "m"),
                         checkpoints_dir=str(tmp_path / "c"), **{name: on[name]})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
