@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 On one CUDA card (an H100 is the target), in order ([zoo], 14, runs
-last), each phase printing its lines and any failure ending the run with
-a non-zero exit:
+last; [ckpt], 33, follows [ddp]), each phase printing its lines and any
+failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``). TF32 is left
    at the process default: the port's forwards set their own precision
@@ -270,7 +270,9 @@ a non-zero exit:
    eager ones, bit-equal expected (1e-6); (b) and (c) against (a): step 1's loss to
    1e-5, its summed gradients in norm to 1e-2, the BatchNorm statistics
    after it to 1e-6, steps 2 and 3 to 1e-3; each run's step time (CUDA
-   events) and its all-reduce share (``torch.profiler``). Ranks are
+   events) and its all-reduce share (``torch.profiler``). Every run writes
+   ``checkpoint_backend: orbax_async`` rolling and best checkpoints, one
+   directory per run shared by its ranks ([ckpt] (d) reads them). Ranks are
    spawned by ``torch.multiprocessing`` over a ``FileStore``, their lines
    tagged with the rank; a failing rank fails the run;
 30. tp: ``pipelines.cues.main`` at bert-base width (cues_config's bert, 1
@@ -287,7 +289,25 @@ a non-zero exit:
    CLI's ``--data-parallel``) over every visible card on [serve]'s
    vgg_lstm weights, streaming (the log-mel kernel in each replica's
    forward), against one resident ``Predictor``: logits to 1e-6, the
-   kernel's launches counted.
+   kernel's launches counted;
+33. ckpt (after [ddp]): the orbax checkpoint backends (``train/
+   checkpoint.py``, ``torch.distributed.checkpoint`` directories). (a)
+   ``pipelines.audio.main`` trains full-width vgg_lstm (B=32, 2 epochs,
+   [train]'s corpus, ``cudnn.deterministic``) with ``orbax_async`` and
+   rolling checkpoints and with ``msgpack``: histories and the final test
+   accuracy bit-equal, the logits served from ``vgg_lstm_best.orbax``
+   bit-equal to ``vgg_lstm_best.pt``'s, and ``--resume`` in a fresh
+   ``main`` trains 0 epochs; (c) the device-resident vgg_lstm in CUDA
+   graphs of 4 steps with ``orbax_async``: each epoch's rolling save
+   (redirected to a directory of its own) bit-equal to the host snapshot
+   taken when the save returned; (b) bert-base through
+   ``pipelines.cues.main`` on [cues-train]'s corpus, 2 epochs with each
+   backend: the milliseconds ``fit`` blocks in each save and in each wait,
+   the bytes on disk, each epoch's train + val time and its wall time to
+   the next epoch; (d) [ddp]'s directories: a ``__<rank>_0.distcp`` file
+   per rank, each item written once, the rolling one bit-equal to rank 0's
+   model after fit, and (b)'s resumed at world 1 with 0 epochs left. The
+   log-mel kernel's launches of the phase are counted.
 
 Every phase prints its wall time. The video and cue phases, [cv-*] and
 [zoo] launch no hand-written kernel. The request breakdowns load lips
@@ -3493,6 +3513,7 @@ def ddp_run(rank: int, world: int, payload: dict) -> dict:
     from multimodal_lipread_torch.config import Config
     from multimodal_lipread_torch.ops import logmel_cuda
     from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+    from multimodal_lipread_torch.train.checkpoint import module_state
 
     torch.backends.cudnn.deterministic = True
     cfg = Config.from_dict(payload["config"])
@@ -3504,6 +3525,9 @@ def ddp_run(rank: int, world: int, payload: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = logmel_cuda.launch_count
+    # the model as fit left it (what its rolling checkpoint holds), before
+    # the timed steps below move it
+    state = module_state(rec["trainer"].model) if rank == 0 else None
     share = allreduce_share(rec["trainer"], rec["batch"])
     ms = np.asarray(rec["ms"][1:])
     log("ddp", f"{payload['label']}: pipelines.audio.main {wall:.2f} s, {len(rec['ms'])} steps of "
@@ -3511,7 +3535,8 @@ def ddp_run(rank: int, world: int, payload: dict) -> dict:
                f"all-reduce {share['comm_ms']:.3f} ms of a {share['step_ms']:.3f} ms profiled step "
                f"({100 * share['share']:.1f} %), log-mel launches {launches} | {payload['smi']}")
     return {"rows": np.stack(rec["rows"]), "ms": rec["ms"], "bn": rec["bn"], "grads": rec["grads"],
-            "launches": launches, "history": result["history"], "share": share}
+            "launches": launches, "history": result["history"], "share": share, "label": payload["label"],
+            "state": state}
 
 
 def grad_rel_err(ref: dict, others: list) -> tuple:
@@ -3577,7 +3602,8 @@ def phase_ddp(seed: int, device_info: dict, tmp: str) -> dict:
         "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117},
         "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
         "training": {"batch_size": TRAIN_BATCH, "epochs": DDP_EPOCHS, "learning_rate": DDP_LR,
-                     "weight_decay": TRAIN_WD, "seed": seed}}}
+                     "weight_decay": TRAIN_WD, "seed": seed, "checkpoint_backend": "orbax_async",
+                     "rolling_checkpoint": True}}}
     log("ddp", f"[train]'s corpus from --seed, vgg_lstm VGG{VGG_VERSION}-BN + BiLSTM 2x128, float32, batch "
                f"{TRAIN_BATCH}, {DDP_EPOCHS} epoch at lr {DDP_LR:g} (steps compared across worlds: a larger lr "
                f"amplifies reduction-order rounding through Adam), cudnn.deterministic")
@@ -3642,7 +3668,8 @@ def phase_ddp(seed: int, device_info: dict, tmp: str) -> dict:
     launches = alone["launches"] + sum(r["launches"] for ranks in runs.values() for r in ranks)
     if min([alone["launches"]] + [r["launches"] for ranks in runs.values() for r in ranks]) < 1:
         raise SystemExit("[ddp] a run never launched the log-mel kernel")
-    return {"launches": launches}
+    return {"launches": launches, "runs": {"(0)": [alone], **runs}, "base": payload["base"],
+            "config": payload["config"]}
 
 
 def tp_run(rank: int, world: int, payload: dict) -> dict:
@@ -3833,6 +3860,321 @@ def phase_dp_serve(seed: int, device_info: dict) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [ckpt]: the orbax checkpoint backends (train/checkpoint.py, dcp directories)
+CKPT_EPOCHS = 2
+CKPT_BACKENDS = ("msgpack", "orbax", "orbax_async")
+
+
+def tree_bytes(path: str) -> int:
+    """Bytes on disk of a checkpoint file or directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def flat_tensors(tree, prefix: str = "") -> dict:
+    """``{dotted path: tensor}`` of every tensor in a checkpoint tree."""
+    out = {}
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_tensors(v, f"{prefix}.{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat_tensors(v, f"{prefix}.{i}"))
+    return out
+
+
+def trees_equal(got, want) -> tuple:
+    """(bit-equal, count of tensors compared, first differing path)."""
+    a, b = flat_tensors(got), flat_tensors(want)
+    if set(a) != set(b):
+        return False, len(b), sorted(set(a) ^ set(b))[:3]
+    for k in sorted(b):
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            return False, len(b), k
+    return True, len(b), None
+
+
+@contextlib.contextmanager
+def checkpoint_clock():
+    """Inside the block, the host milliseconds of every ``Trainer.
+    checkpoint_tree`` (the export), ``Trainer._save_ckpt`` (what ``fit``
+    blocks in a save) and ``wait_for_async_saves`` in ``fit``, and the
+    host clock at each ``train_epoch``'s start and each ``fit``'s end."""
+    from multimodal_lipread_torch.train import trainer as trainer_module
+
+    rec: dict = {"export": [], "save": [], "wait": [], "epoch_start": [], "fit_end": []}
+    originals = (trainer_module.Trainer.checkpoint_tree, trainer_module.Trainer._save_ckpt,
+                 trainer_module.wait_for_async_saves, trainer_module.Trainer.train_epoch, trainer_module.Trainer.fit)
+
+    def clocked(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec[key].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    def epoch(self, *args, **kwargs):
+        rec["epoch_start"].append(time.perf_counter())
+        return originals[3](self, *args, **kwargs)
+
+    def fit(self, *args, **kwargs):
+        try:
+            return originals[4](self, *args, **kwargs)
+        finally:
+            rec["fit_end"].append(time.perf_counter())
+
+    trainer_module.Trainer.checkpoint_tree = clocked("export", originals[0])
+    trainer_module.Trainer._save_ckpt = clocked("save", originals[1])
+    trainer_module.wait_for_async_saves = clocked("wait", originals[2])
+    trainer_module.Trainer.train_epoch = epoch
+    trainer_module.Trainer.fit = fit
+    try:
+        yield rec
+    finally:
+        (trainer_module.Trainer.checkpoint_tree, trainer_module.Trainer._save_ckpt,
+         trainer_module.wait_for_async_saves, trainer_module.Trainer.train_epoch, trainer_module.Trainer.fit) = originals
+
+
+def epoch_walls(rec: dict) -> list:
+    """Seconds from each epoch's start to the next one's (the last: to the
+    end of ``fit``, its final test and waits included)."""
+    marks = rec["epoch_start"] + rec["fit_end"][-1:]
+    return [b - a for a, b in zip(marks, marks[1:])]
+
+
+def ckpt_audio_config(root: str, base: str, seed: int, backend: str) -> "Config":
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117},
+        "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": CKPT_EPOCHS, "learning_rate": TRAIN_LR,
+                     "weight_decay": TRAIN_WD, "seed": seed, "rolling_checkpoint": True,
+                     "checkpoint_backend": backend},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def ckpt_history(result: dict) -> list:
+    keys = ("epoch", "train_loss", "train_acc", "val_loss", "val_acc", "test_loss", "test_acc", "lr")
+    return [[h[k] for k in keys if k in h] for h in result["history"]]
+
+
+def ckpt_audio(seed: int, root: str, tmp: str) -> None:
+    """[ckpt] (a): the audio pipeline with orbax_async against msgpack
+    (histories bit-equal under ``cudnn.deterministic``), served from the
+    .orbax directory against the .pt file, and resumed in a fresh main."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.data.glips import scan_glips
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+
+    runs = {}
+    for backend in ("msgpack", "orbax_async"):
+        t0 = time.perf_counter()
+        runs[backend] = audio_pipeline.main(ckpt_audio_config(root, os.path.join(tmp, backend), seed, backend),
+                                            device=DEVICE)
+        torch.cuda.synchronize()
+        log("ckpt", f"(a) pipelines.audio.main vgg_lstm VGG{VGG_VERSION}-BN + BiLSTM 2x128 B={TRAIN_BATCH}, "
+                    f"{CKPT_EPOCHS} epochs, rolling checkpoints, checkpoint_backend {backend}: "
+                    f"{time.perf_counter() - t0:.2f} s, best {os.path.basename(runs[backend]['best_checkpoint'])}")
+    want, got = (ckpt_history(runs[b]) for b in ("msgpack", "orbax_async"))
+    same = got == want and runs["orbax_async"]["final_test_acc"] == runs["msgpack"]["final_test_acc"]
+    log("ckpt", f"(a) history over {len(got)} epochs and final test acc {runs['orbax_async']['final_test_acc']:.2f}% "
+                f"bit-equal to msgpack's: {same} {'ok' if same else 'FAIL'}")
+    if not same or len(got) != CKPT_EPOCHS:
+        raise SystemExit("[ckpt] the orbax_async run departs from the msgpack run")
+    test = [e.path for e in scan_glips(root).by_split("test")]
+    served = {}
+    for backend, result in runs.items():
+        t0 = time.perf_counter()
+        out = serving.predict_audio_clips(ckpt_audio_config(root, os.path.join(tmp, backend), seed, backend),
+                                          result["best_checkpoint"], test, TRAIN_BATCH, device=DEVICE)
+        served[backend] = np.asarray([r["logits"] for r in out])
+        log("ckpt", f"(a) served {len(test)} test clips from {os.path.basename(result['best_checkpoint'])} "
+                    f"({tree_bytes(result['best_checkpoint']) / 2**20:.1f} MiB) in "
+                    f"{(time.perf_counter() - t0) * 1e3:.1f} ms (read, build, featurize, classify)")
+    ok = (served["orbax_async"].shape == (len(test), len(WORDS)) and np.isfinite(served["msgpack"]).all()
+          and np.array_equal(served["orbax_async"], served["msgpack"]))
+    log("ckpt", f"(a) logits served from vgg_lstm_best.orbax bit-equal to vgg_lstm_best.pt's: {ok} "
+                f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[ckpt] serving the .orbax directory departs from serving the .pt file")
+    resumed = audio_pipeline.main(ckpt_audio_config(root, os.path.join(tmp, "orbax_async"), seed, "orbax_async"),
+                                  resume=True, device=DEVICE)
+    ok = resumed["history"] == [] and resumed["final_test_acc"] == runs["orbax_async"]["final_test_acc"]
+    log("ckpt", f"(a) --resume in a fresh main from the async rolling directory: {len(resumed['history'])} epochs "
+                f"left to train, final test acc {resumed['final_test_acc']:.2f}% {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[ckpt] resuming from the async rolling checkpoint trained again")
+    log("ckpt", f"(a) log-mel kernel launches so far: {logmel_cuda.launch_count}")
+    if logmel_cuda.launch_count < 1:
+        raise SystemExit("[ckpt] the audio path never launched the log-mel kernel")
+
+
+def ckpt_graphs(seed: int, root: str, tmp: str) -> None:
+    """[ckpt] (c): device-resident vgg_lstm in CUDA graphs of 4 steps with
+    orbax_async, each epoch's rolling save written to a directory of its
+    own and held to the host snapshot taken when the save returned (the
+    next replay changes the parameters and Adam's moments in place)."""
+    from multimodal_lipread_torch.models.audio import get_audio_model
+    from multimodal_lipread_torch.pipelines.common import load_audio_datasets
+    from multimodal_lipread_torch.train import checkpoint as ckpt
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    datasets, _ = load_audio_datasets(root, device=DEVICE)
+    snaps: dict = {}
+    save = Trainer._save_ckpt
+
+    def save_each_epoch(self, path, tree):
+        if "checkpoint" in os.path.basename(path):
+            path = path.replace(".orbax", f"_e{tree['epoch']}.orbax")
+            save(self, path, tree)
+            snaps[path] = self._host_snapshot()["state"]
+        else:
+            save(self, path, tree)
+
+    trainer = Trainer(get_audio_model("vgg_lstm", len(WORDS), version=VGG_VERSION), TrainerConfig(
+        model_name="vgg_lstm", num_classes=len(WORDS), batch_size=TRAIN_BATCH, epochs=CKPT_EPOCHS,
+        learning_rate=TRAIN_LR, weight_decay=TRAIN_WD, seed=seed, rolling_checkpoint=True,
+        device_resident=True, steps_per_dispatch=GRAPH_K, checkpoint_backend="orbax_async",
+        metrics_dir=os.path.join(tmp, "graphs", "metrics"),
+        checkpoints_dir=os.path.join(tmp, "graphs", "models_trained")), device=DEVICE)
+    Trainer._save_ckpt = save_each_epoch
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(datasets["train"], datasets["val"], None, progress=None)
+        torch.cuda.synchronize()
+    finally:
+        Trainer._save_ckpt = save
+    graphs = len(trainer._graphs)
+    log("ckpt", f"(c) device-resident vgg_lstm, CUDA graphs of {GRAPH_K} steps ({graphs} captured), orbax_async, "
+                f"{CKPT_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s")
+    for path, snap in sorted(snaps.items()):
+        ok, count, where = trees_equal(ckpt.load_checkpoint_orbax(path)["state"], snap)
+        log("ckpt", f"(c) {os.path.basename(path)} bit-equal to the host snapshot taken when its save returned "
+                    f"({count} tensors: parameters, statistics, Adam's moments and steps): {ok}"
+                    f"{'' if ok else f' (first difference {where})'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("[ckpt] an async save did not hold the state it was given")
+    if len(snaps) != CKPT_EPOCHS or (graphs < 1 and DEVICE == "cuda"):
+        raise SystemExit(f"[ckpt] (c) saved {len(snaps)} epochs with {graphs} graphs")
+
+
+def ckpt_backends(seed: int, cue_root: str, tmp: str, smi: str) -> None:
+    """[ckpt] (b): bert-base through ``pipelines.cues.main`` with each
+    backend: what ``fit`` blocks in each save, the bytes, the epochs' wall
+    time and the waits."""
+    from multimodal_lipread_torch import serving
+    from multimodal_lipread_torch.pipelines import cues as cues_pipeline
+
+    best = {}
+    for backend in CKPT_BACKENDS:
+        base = os.path.join(tmp, f"cues_{backend}")
+        cfg = cues_config(cue_root, base, seed)
+        cfg.set("training.checkpoint_backend", backend)
+        with checkpoint_clock() as rec:
+            t0 = time.perf_counter()
+            result = cues_pipeline.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        hist = result["history"]
+        if len(hist) != CUES_SET["training.epochs"] or not np.isfinite([h["train_loss"] for h in hist]).all():
+            raise SystemExit(f"[ckpt] (b) bert-base with {backend} gave {len(hist)} epochs")
+        ckpts = os.path.join(base, "models_trained")
+        sizes = {name: round(tree_bytes(os.path.join(ckpts, name)) / 2**20, 1) for name in sorted(os.listdir(ckpts))}
+        log("ckpt", f"(b) bert-base, pipelines.cues.main {len(hist)} epochs with rolling checkpoints, "
+                    f"checkpoint_backend {backend}: {wall:.2f} s; fit blocked in each save "
+                    f"{[round(ms, 1) for ms in rec['save']]} ms, after each export (parameters to the host) "
+                    f"{[round(ms, 1) for ms in rec['export']]} ms; waits {[round(ms, 1) for ms in rec['wait']]} ms; "
+                    f"epoch train+val {[round(h['seconds'], 3) for h in hist]} s, epoch start to next start (last: "
+                    f"to fit's end) {[round(s, 3) for s in epoch_walls(rec)]} s; on disk {sizes} MiB | {smi}")
+        best[backend] = (cfg, os.path.join(ckpts, "bert_best." + ("pt" if backend == "msgpack" else "orbax")))
+        torch.cuda.empty_cache()
+    # a serving call's checkpoint load: the .pt file memory-mapped (Adam's
+    # moments unpickled, not read) against the .orbax directory's weights
+    # only, each into a model built on meta and moved to the card, in turns
+    ms: dict = {b: [] for b in ("msgpack", "orbax")}
+    for _ in range(3):
+        for backend in ms:
+            cfg, path = best[backend]
+            t0 = time.perf_counter()
+            model, _ = serving.load_model(functools.partial(serving.build_model, "cues", cfg), path, DEVICE)
+            torch.cuda.synchronize()
+            ms[backend].append((time.perf_counter() - t0) * 1e3)
+            del model
+    log("ckpt", f"(b) serving.load_model of the bert-base best checkpoint onto the card, 3 turns (page cache warm): "
+                f".pt {[round(x, 1) for x in ms['msgpack']]} ms, .orbax {[round(x, 1) for x in ms['orbax']]} ms | {smi}")
+
+
+def ckpt_ranks(ddp: dict) -> None:
+    """[ckpt] (d): the directories [ddp]'s runs wrote with orbax_async (one
+    per run, shared by its ranks, each item written once, holding rank 0's
+    model), and (b)'s resumed at world 1 without a process group."""
+    from multimodal_lipread_torch.config import Config
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+    from multimodal_lipread_torch.train import checkpoint as ckpt
+    from torch.distributed.checkpoint import FileSystemReader
+
+    for label, ranks in ddp["runs"].items():
+        ckpts = os.path.join(ddp["base"], ranks[0]["label"], "models_trained")
+        for name in ("vgg_lstm_best.orbax", "vgg_lstm_checkpoint.orbax"):
+            path = os.path.join(ckpts, name)
+            files = sorted(os.listdir(path))
+            storage = FileSystemReader(path).read_metadata().storage_data
+            written = sum(os.path.getsize(os.path.join(path, f)) for f in files if f.endswith(".distcp"))
+            once = sum(i.length for i in storage.values()) == written
+            ok = files == [".metadata"] + [f"__{r}_0.distcp" for r in range(len(ranks))] and once
+            line = f"(d) {label}: {name} files {files}, {written / 2**20:.1f} MiB of data, each item written once: {once}"
+            if "checkpoint" in name:
+                same, count, where = trees_equal(ckpt.load_checkpoint_orbax(path, ckpt.SERVING_KEYS)["state"],
+                                                 ranks[0]["state"])
+                ok = ok and same
+                line += f"; parameters and statistics bit-equal to rank 0's model after fit ({count} tensors): {same}"
+            log("ckpt", f"{line} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"[ckpt] (d) {label}'s {name} is not the one shared directory of its ranks")
+    cfg = Config.from_dict(ddp["config"])
+    cfg.set("output.base_dir", os.path.join(ddp["base"], ddp["runs"]["(b)"][0]["label"]))
+    resumed = audio_pipeline.main(cfg, resume=True, device=DEVICE)
+    ok = resumed["history"] == []
+    log("ckpt", f"(d) (b)'s world-2 rolling directory resumed at world 1 without a process group: "
+                f"{len(resumed['history'])} epochs left to train {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[ckpt] (d) the world-2 orbax checkpoint did not resume at world 1")
+
+
+def phase_ckpt(seed: int, device_info: dict, tmp: str, cue_root: str, ddp: dict) -> int:
+    """The orbax checkpoint backends on the card, (a) to (d); returns the
+    log-mel kernel's launches in the phase."""
+    from multimodal_lipread_torch.data.synthetic import make_synthetic_glips
+    from multimodal_lipread_torch.ops import logmel_cuda
+
+    tmp = os.path.join(tmp, "ckpt")
+    root = make_synthetic_glips(os.path.join(tmp, "GLips_4"), words=WORDS, clips_per_split=TRAIN_CLIPS_PER_SPLIT,
+                                seed=seed)
+    logmel_cuda.launch_count = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ckpt_audio(seed, root, tmp)
+        ckpt_graphs(seed, root, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    ckpt_backends(seed, cue_root, tmp, device_info["smi"])
+    ckpt_ranks(ddp)
+    launches = logmel_cuda.launch_count
+    log("ckpt", f"log-mel kernel launches in the phase: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3880,11 +4222,12 @@ def main(argv=None) -> int:
         timed("graphs", phase_graphs, seed, device_info, tmp, {
             "audio_video": av["datasets"]["train"], "audio_cues_video": acv["datasets"]["train"],
             "cues": cues["datasets"]["train"], "audio_cues": ac["datasets"]["train"]})
-        ddp_launches = timed("ddp", phase_ddp, seed, device_info, tmp)["launches"]
+        ddp = timed("ddp", phase_ddp, seed, device_info, tmp)
+        ckpt_launches = timed("ckpt", phase_ckpt, seed, device_info, tmp, cues["root"], ddp)
         timed("tp", phase_tp, seed, device_info, tmp)
         timed("pp", phase_pp, seed, device_info)
         dp_launches = timed("dp-serve", phase_dp_serve, seed, device_info)
-        launches += ddp_launches + dp_launches
+        launches += ddp["launches"] + ckpt_launches + dp_launches
         timed("zoo", phase_zoo, seed, device_info, av, video["best"], tmp, cues, ac, cv, acv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3904,7 +4247,8 @@ def main(argv=None) -> int:
         "bound_by": row["bound_by"],
         "library_ms": None,
         "paths": ["serve", "train", "stream-train", "native-stream", "load-test", "export", "av-train", "av-serve",
-                  "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen", "ddp", "dp-serve"],
+                  "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen", "ddp", "ckpt",
+                  "dp-serve"],
     }, {
         "name": "crop_resize",
         "route": "cuda",

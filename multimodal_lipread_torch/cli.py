@@ -5,9 +5,9 @@ does:
     python -m multimodal_lipread_torch.cli <pipeline> --config <yaml> [--set k=v ...] [--resume] [--device cpu]
 
 with ``<pipeline>`` one of the seven (``audio`` ... ``audio_cues_video``);
-the tools are ``lip_extract``, ``frame_extract``, ``data_clean``,
-``transcode``, ``serve`` and ``plot``. ``cue_generate`` is not ported: it
-calls a remote API.
+the tools are ``lip_extract``, ``frame_extract``, ``cue_generate`` (a
+vision LLM behind a remote API writes the cue descriptions),
+``data_clean``, ``transcode``, ``serve`` and ``plot``.
 """
 
 from __future__ import annotations
@@ -77,10 +77,7 @@ def data_clean() -> int:
 
 
 def cue_generate() -> int:
-    raise NotImplementedError(
-        "cue generation calls a remote API and is not queued for the PyTorch port (ROADMAP.md Queue 1 #11, "
-        "'not queued'): generate the cue descriptions with the JAX package's tools/cue_generation.py"
-    )
+    return _module_main("multimodal_lipread_torch.tools.cue_generation")
 
 
 def transcode() -> int:

@@ -10,7 +10,11 @@ log-mel CUDA kernel, then the model trains with Adam and
 ReduceLROnPlateau('min', 0.5, 5), evaluating the test split every epoch,
 keeping the best-val checkpoint and running the final test on it. Logs go
 to ``<output.base_dir>/metrics``, checkpoints (``<model>_best.pt``, which
-``serving.py`` serves) to ``<output.base_dir>/models_trained``.
+``serving.py`` serves; ``<model>_best.orbax`` directories with
+``training.checkpoint_backend: orbax | orbax_async``) to
+``<output.base_dir>/models_trained``. ``training.rolling_checkpoint: true``
+also writes ``<model>_checkpoint.*`` every epoch, which ``--resume``
+continues from (the JAX audio pipeline writes none).
 
 ``dataset.streaming: true`` streams the waveforms per epoch instead, and
 the model is wrapped in ``WaveToLogMel``: the log-mel kernel runs inside
@@ -117,6 +121,9 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
             metrics_dir=metrics_dir,
             checkpoints_dir=ckpt_dir,
             test_every_epoch=True,
+            # the JAX audio pipeline writes no rolling checkpoint; this key
+            # (read as the cue pipeline reads it) turns one on for --resume
+            rolling_checkpoint=cfg.get("training.rolling_checkpoint", False),
             **trainer_extras(cfg),
         ),
         device=device,

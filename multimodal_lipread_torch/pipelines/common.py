@@ -207,10 +207,11 @@ def load_pretrained_backbones(trainer: Any, cfg: Config) -> int:
             raise ValueError(f"model.pretrained entry {spec} needs 'path' and 'submodule'")
         path = spec["path"]
         if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f"pretrained weights for '{arch}' not found at {path}: save a state dict with "
-                f"torch.save(model.state_dict(), path) on a machine that has the weights"
-            )
+            how = ("name a .pt checkpoint the port's trainer wrote" if arch == "checkpoint" else
+                   f"fetch torchvision's with `python -m multimodal_lipread_torch.tools.fetch_weights --arch {arch} "
+                   f"--out <dir>` on a machine with egress, or save a state dict with "
+                   f"torch.save(model.state_dict(), path) where the weights are")
+            raise FileNotFoundError(f"pretrained weights for '{arch}' not found at {path}: {how}")
         if arch == "checkpoint":
             tree = load_checkpoint(path)["state"]
             source = _dotted(spec.get("source_submodule", ()))
@@ -288,8 +289,8 @@ def model_dtype(cfg) -> torch.dtype:
 
 def trainer_extras(cfg: Config, default_warmup_epochs: float = 0.0) -> dict:
     """The ``training.*`` TrainerConfig knobs common to every pipeline, as
-    the JAX package reads them (the orbax ``checkpoint_backend``, which the
-    port does not run, is passed on so that the trainer raises for it);
+    the JAX package reads them (``checkpoint_backend``: ``msgpack``, a
+    ``.pt`` file, or ``orbax`` / ``orbax_async``, a ``.orbax`` directory);
     ``dropout_rng_impl`` names a
     JAX PRNG and has no counterpart here (torch draws dropout from Philox).
     ``default_warmup_epochs`` is a pipeline's own LR warmup where the config

@@ -40,8 +40,10 @@ before the cast, as the trainer's ``device_preproc`` does: with
 ``ops/crop_resize_cuda.device_crop`` a video predictor serves full decoded
 frames and lip boxes, the crop kernel cutting the lips on the card.
 
-A checkpoint is read memory-mapped and only its ``state`` is touched
-(Adam's moments stay on disk); the model is built on the ``meta`` device and
+A ``.pt`` checkpoint is read memory-mapped and only its ``state`` is
+touched (Adam's moments stay on disk); of a ``.orbax`` directory (the
+``orbax`` / ``orbax_async`` checkpoint backends) only the weights and
+``classes`` are read. The model is built on the ``meta`` device and
 takes the checkpoint's tensors as they are (``load_state_dict(assign=True)``),
 then moves to the card from pinned memory. A checkpoint that names its
 label space (``classes``, written by the port's trainer) sizes the head and
@@ -76,14 +78,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_lipread_torch.train.checkpoint import SERVING_KEYS, is_orbax_path, load_checkpoint_orbax
 from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
 
 
 def read_checkpoint(ckpt_path: str) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Optional[List[str]]]:
     """A checkpoint's ``state`` (``{params, batch_stats, ...}``) and its
-    ``classes`` (``None`` where it names none), read memory-mapped: only the
-    tensors a caller touches are read from disk."""
-    tree = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    ``classes`` (``None`` where it names none). A ``.pt`` file is read
+    memory-mapped (only the tensors a caller touches are read from disk);
+    of a ``.orbax`` directory only ``state.params``, ``state.batch_stats``
+    and ``classes`` are read (``train/checkpoint.SERVING_KEYS``)."""
+    if is_orbax_path(ckpt_path):
+        tree = load_checkpoint_orbax(ckpt_path, SERVING_KEYS)
+    else:
+        tree = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
     return tree["state"], tree.get("classes")
 
 
@@ -633,7 +641,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     parser.add_argument("--pipeline", default="audio", choices=PIPELINES)
     parser.add_argument("--config", required=True)
-    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a trainer's <model>_best.pt file or <model>_best.orbax directory")
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     parser.add_argument("--data-parallel", action="store_true",

@@ -97,17 +97,19 @@ semantics on a mesh, so that W ranks give the one-rank run's math:
   ``device_preproc`` are refused there, as in the JAX trainer).
 - Checkpoints hold full tensors whatever the world (cut tensors are put
   together with ``all_reduce``), and every rank writes them as the JAX
-  trainer's processes do, through pid-unique staging files; a checkpoint
-  written at one world size resumes at another. Every rank prints and logs,
-  as the JAX processes do.
+  trainer's processes do: with ``checkpoint_backend: msgpack`` a ``.pt``
+  file through pid-unique staging files, with ``orbax`` / ``orbax_async``
+  one shared ``.orbax`` directory written collectively
+  (``torch.distributed.checkpoint``, each tensor once; ``orbax_async``
+  writes in the background, and ``fit`` waits for it before the
+  best-checkpoint gate and before it returns). A checkpoint written at one
+  world size resumes at another. Every rank prints and logs, as the JAX
+  processes do.
 
 On the card, K > 1 graphed ``steps_per_dispatch`` captures DDP's step with
 its NCCL all-reduce (DDP built on a side stream, its first 11 steps run
 eagerly, the capture thread-local because NCCL's watchdog queries events);
-over gloo it raises ``NotImplementedError`` (ROADMAP.md, Queue 3 #16).
-Not ported: the orbax
-``checkpoint_backend`` (``torch.distributed.checkpoint`` is its
-counterpart, ROADMAP.md Queue 1) raises ``NotImplementedError``. The
+over gloo it raises ``NotImplementedError`` (ROADMAP.md, Queue 3 #16). The
 trainer runs on ``device`` ("cuda" unless the caller asks for the CPU).
 """
 
@@ -131,10 +133,16 @@ from multimodal_lipread_torch.nn.common import BatchNorm, Dropout, flax_init_
 from multimodal_lipread_torch.parallel import mesh as pmesh
 from multimodal_lipread_torch.parallel.distributed import is_initialized, world_size
 from multimodal_lipread_torch.train.checkpoint import (
+    CHECKPOINT_BACKENDS,
+    ORBAX_BACKENDS,
+    host_copy,
     load_checkpoint,
+    load_checkpoint_orbax,
     load_module_state,
     module_state,
     save_checkpoint,
+    save_checkpoint_orbax,
+    wait_for_async_saves,
 )
 from multimodal_lipread_torch.train.schedule import ReduceLROnPlateau
 from multimodal_lipread_torch.utils.metrics_log import MetricLogger
@@ -190,8 +198,9 @@ class TrainerConfig:
     # batches prepared (gathered, pinned) this many ahead in a side thread;
     # the batch order is unchanged. 0 prepares them inline.
     host_prefetch: int = 2
-    # the single-file checkpoint ('msgpack' in the JAX package; torch.save
-    # here). The orbax backends are not ported.
+    # 'msgpack': one torch.save file (<model>_*.pt); 'orbax' / 'orbax_async':
+    # a torch.distributed.checkpoint directory (<model>_*.orbax), written in
+    # the background by 'orbax_async' (train/checkpoint.py)
     checkpoint_backend: str = "msgpack"
     # parameter subtrees (JAX path prefixes) that get no update
     frozen_param_prefixes: Tuple[Tuple[str, ...], ...] = ()
@@ -214,25 +223,6 @@ class TrainerConfig:
     # the words of the label space, by index: written into every checkpoint
     # as ``classes``, where serving reads them
     class_names: Optional[Tuple[str, ...]] = None
-
-
-# TrainerConfig knobs of the JAX trainer that the port does not run, with
-# the value that leaves them off
-UNPORTED_KNOBS: Dict[str, Any] = {
-    "checkpoint_backend": "msgpack",
-}
-_UNPORTED_WHERE = {"checkpoint_backend": "Queue 1: the orbax backends' counterpart is torch.distributed.checkpoint "
-                                         "with async_save"}
-
-
-def check_ported(config: TrainerConfig) -> None:
-    """Raise for every knob that is set but not ported."""
-    for name, off in UNPORTED_KNOBS.items():
-        value = getattr(config, name)
-        if value is not off and value != off:
-            raise NotImplementedError(
-                f"TrainerConfig.{name}={value!r} is not ported to PyTorch (ROADMAP.md, {_UNPORTED_WHERE[name]})"
-            )
 
 
 @dataclasses.dataclass
@@ -314,18 +304,6 @@ def _host_prefetch_iter(it: Iterator, depth: int) -> Iterator:
         t.join(timeout=5.0)
 
 
-def _to_cpu(tree: Any) -> Any:
-    """A copy of a nest of dicts, lists and tensors with every tensor cloned
-    onto the CPU."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
-    return tree
-
-
 class _StepGroupGraph:
     """K calls of ``step(idx, weights)`` captured as one CUDA graph.
 
@@ -380,7 +358,9 @@ class Trainer:
     mesh over the world, ``None`` without a process group)."""
 
     def __init__(self, model: nn.Module, config: TrainerConfig, device: str = "cuda", mesh: Any = None):
-        check_ported(config)
+        if config.checkpoint_backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(f"TrainerConfig.checkpoint_backend={config.checkpoint_backend!r}: one of "
+                             f"{', '.join(CHECKPOINT_BACKENDS)}")
         self.config = config
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -547,7 +527,7 @@ class Trainer:
             state["params"] = {k: v.cpu() for k, v in state["params"].items()}
             opt = {**opt, "state": {i: self._map_moments(i, s, gather=True) for i, s in opt["state"].items()}}
         if opt_to_cpu or self._rules:
-            opt = _to_cpu(opt)
+            opt = host_copy(opt)
         return {**state, "opt_state": opt, "step": self.step}
 
     def _map_moments(self, index: int, entry: Dict[str, Any], gather: bool) -> Dict[str, Any]:
@@ -1018,7 +998,22 @@ class Trainer:
 
     def _ckpt_path(self, kind: str) -> str:
         os.makedirs(self.config.checkpoints_dir, exist_ok=True)
-        return os.path.join(self.config.checkpoints_dir, f"{self.config.model_name}_{kind}.pt")
+        suffix = "orbax" if self.config.checkpoint_backend in ORBAX_BACKENDS else "pt"
+        return os.path.join(self.config.checkpoints_dir, f"{self.config.model_name}_{kind}.{suffix}")
+
+    def _save_ckpt(self, path: str, tree: Dict[str, Any]) -> None:
+        backend = self.config.checkpoint_backend
+        if backend in ORBAX_BACKENDS:
+            save_checkpoint_orbax(path, tree, async_save=backend == "orbax_async")
+        else:
+            save_checkpoint(path, tree)
+
+    def _load_ckpt(self, path: str, keys: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+        """The checkpoint at ``path``; the ``.orbax`` read takes only
+        ``keys`` where given (the ``.pt`` file is read whole)."""
+        if self.config.checkpoint_backend in ORBAX_BACKENDS:
+            return load_checkpoint_orbax(path, keys)
+        return load_checkpoint(path)
 
     def _scheduler_fields(self) -> Dict[str, Any]:
         s = self.scheduler
@@ -1178,6 +1173,8 @@ class Trainer:
             return self._fit_loop(train_ds, val_ds, test_ds, resume, progress)
         finally:
             restore_signals()
+            if cfg.checkpoint_backend == "orbax_async":
+                wait_for_async_saves()  # a returned run is on disk
 
     def _train_epoch_traced(self, train_ds: Any, rng: np.random.Generator, epoch: int) -> EpochMetrics:
         """``train_epoch`` under ``torch.profiler`` (CPU, and CUDA on a card),
@@ -1201,7 +1198,7 @@ class Trainer:
         rolling_path = self._ckpt_path("checkpoint")
         best_path = self._ckpt_path("best")
         if resume and os.path.exists(rolling_path):
-            ckpt = load_checkpoint(rolling_path)
+            ckpt = self._load_ckpt(rolling_path)
             self.restore_state(ckpt["state"])
             start_epoch = int(ckpt["epoch"]) + 1
             self.scheduler.lr = float(ckpt["scheduler_lr"])
@@ -1240,7 +1237,7 @@ class Trainer:
                 # without handle_preemption there is no snapshot: the current
                 # state is saved (a valid checkpoint, an approximate replay)
                 snap = boundary if boundary is not None else self._host_snapshot()
-                save_checkpoint(rolling_path, {
+                self._save_ckpt(rolling_path, {
                     "epoch": epoch - 1, "state": snap["state"], "val_acc": float(best_val_acc),
                     **self._scheduler_fields(), "best_val_acc": float(best_val_acc),
                     "dropout_rng": snap["dropout_rng"], **self._classes_field(),
@@ -1290,15 +1287,17 @@ class Trainer:
                 # params + Adam moments, ~3x the model: written only when needed
                 ckpt = self.checkpoint_tree(epoch, va.acc, best_val_acc)
                 if is_best:
-                    save_checkpoint(best_path, ckpt)
+                    self._save_ckpt(best_path, ckpt)
                 if cfg.rolling_checkpoint:
-                    save_checkpoint(rolling_path, ckpt)
+                    self._save_ckpt(rolling_path, ckpt)
 
         result: Dict[str, Any] = {"history": history, "best_val_acc": best_val_acc}
+        if cfg.checkpoint_backend == "orbax_async":
+            wait_for_async_saves()  # the best checkpoint may still be writing
         # evaluate() is collective: every rank takes the same branch
         have_best = self._any_rank(os.path.exists(best_path), op=dist.ReduceOp.MIN)
         if test_ds is not None and have_best:
-            with self._weights_of(load_checkpoint(best_path)["state"]):
+            with self._weights_of(self._load_ckpt(best_path, ("state.params", "state.batch_stats"))["state"]):
                 final = self.evaluate(test_ds)
             self.logger.log_final(final.loss, final.acc)
             result["final_test_loss"] = final.loss

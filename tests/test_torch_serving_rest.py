@@ -262,7 +262,7 @@ def test_cli_entry_functions_dispatch(monkeypatch, tmp_path):
 
     seen = []
     for dotted in ("pipelines.audio", "pipelines.cues_video", "data.lip_extraction", "data.frame_extraction",
-                   "tools.data_clean", "tools.transcode", "serving", "utils.visualize"):
+                   "tools.data_clean", "tools.transcode", "serving", "utils.visualize", "tools.cue_generation"):
         mod = importlib.import_module(f"multimodal_lipread_torch.{dotted}")
         monkeypatch.setattr(mod, "main", lambda *a, _d=dotted, **k: seen.append((_d, a, k)))
     cfg = tmp_path / "c.yaml"
@@ -273,10 +273,9 @@ def test_cli_entry_functions_dispatch(monkeypatch, tmp_path):
     config = seen[0][1][0]
     assert config.get("dataset.num_classes") == 3 and config.get("training.epochs") == 1
     assert seen[0][2] == {"resume": False, "device": "cpu"}
-    for fn in (cli.lip_extract, cli.frame_extract, cli.data_clean, cli.transcode, cli.serve, cli.plot):
+    for fn in (cli.lip_extract, cli.frame_extract, cli.data_clean, cli.transcode, cli.serve, cli.plot,
+               cli.cue_generate):
         assert fn() == 0
     assert [s[0] for s in seen[2:]] == ["data.lip_extraction", "data.frame_extraction", "tools.data_clean",
-                                        "tools.transcode", "serving", "utils.visualize"]
-    with pytest.raises(NotImplementedError, match="remote API"):
-        cli.cue_generate()
+                                        "tools.transcode", "serving", "utils.visualize", "tools.cue_generation"]
     assert set(cli.PIPELINES) == set(serving.PIPELINES) and all(callable(getattr(cli, p)) for p in cli.PIPELINES)

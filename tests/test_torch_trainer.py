@@ -8,8 +8,9 @@ third batch holds 4 real rows and 4 pad rows at weight 0) and then a
 2-epoch fit. Held: the per-step losses to 1e-4 relative, the parameters and
 BatchNorm statistics after the steps, the epoch history, and the plateau's
 LR sequence exactly. Also: the plateau copy, the metric logs byte for byte,
-an exact resume, the Flax-style BatchNorm and initializers, bf16 compute
-over float32 parameters, and the knobs that are not ported.
+an exact resume, the Flax-style BatchNorm and initializers, and bf16
+compute over float32 parameters. The orbax checkpoint backends are held in
+tests/test_torch_checkpoint_backends.py.
 """
 
 import dataclasses
@@ -36,12 +37,7 @@ from multimodal_lipread_torch.models import audio as paudio
 from multimodal_lipread_torch.nn import MLP, BatchNorm, flax_init_
 from multimodal_lipread_torch.train.checkpoint import load_checkpoint
 from multimodal_lipread_torch.train.schedule import ReduceLROnPlateau
-from multimodal_lipread_torch.train.trainer import (
-    UNPORTED_KNOBS,
-    ArrayDataset,
-    Trainer,
-    TrainerConfig,
-)
+from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
 from multimodal_lipread_torch.utils.jax_bridge import state_dict_from_jax
 from multimodal_lipread_torch.utils.metrics_log import MetricLogger
 
@@ -305,16 +301,6 @@ def test_train_single_batch_and_bf16_keep_float32_parameters(tmp_path):
     assert all(p.grad is None or p.grad.dtype == torch.float32 for p in model.parameters())
     with torch.no_grad():
         assert model.eval()(torch.from_numpy(x[:2])).dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED_KNOBS))
-def test_unported_knob_raises(tmp_path, name):
-    on = {"checkpoint_backend": "orbax"}
-    cfg = TrainerConfig(model_name="m", num_classes=NUM_CLASSES, metrics_dir=str(tmp_path / "m"),
-                        checkpoints_dir=str(tmp_path / "c"), **{name: on[name]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(MLP(10, (4,), NUM_CLASSES), cfg, device="cpu")
-    assert set(on) == set(UNPORTED_KNOBS)
 
 
 def test_trainer_config_has_the_jax_fields_it_ports():

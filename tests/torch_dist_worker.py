@@ -1,5 +1,6 @@
 """Ranks of the PyTorch port's multi-process tests (tests/test_torch_ddp.py,
-test_torch_tensor_parallel.py, test_torch_pipeline_parallel.py).
+test_torch_tensor_parallel.py, test_torch_pipeline_parallel.py,
+test_torch_checkpoint_backends.py).
 
 ``run_ranks(case, world, workdir, inputs)`` starts ``world`` processes of
 this file, each ``python tests/torch_dist_worker.py CASE WORKDIR`` with
@@ -390,6 +391,33 @@ def case_pp(rank: int, world: int, workdir: str, inputs: Dict[str, Any]) -> Dict
     out["refused"] = refused
     if S == 2:
         out["pipeline"] = cue_main(inputs, workdir, rank, pipeline_parallel=2)
+    return out
+
+
+def case_ckpt(rank: int, world: int, workdir: str, inputs: Dict[str, Any]) -> Dict[str, Any]:
+    """The orbax checkpoint backends over the ranks, every rank writing one
+    shared directory under ``inputs['shared']``: ``Tiny`` data-parallel for
+    2 epochs with ``orbax_async`` rolling checkpoints (its history and
+    final state returned), then BERT at tensor_parallel 2 with ``orbax``
+    (its history and the full parameters it exports)."""
+    from multimodal_lipread_torch.models.bert import BERT_TP_RULES, BertClassifier, BertConfig
+    from multimodal_lipread_torch.parallel.mesh import get_mesh_2d
+    from multimodal_lipread_torch.train.trainer import Trainer
+
+    shared = inputs["shared"]
+    out: Dict[str, Any] = {}
+    t = Trainer(Tiny(), trainer_config(shared, "ddp", epochs=2, weight_decay=0.0, rolling_checkpoint=True,
+                                       checkpoint_backend="orbax_async"), device="cpu")
+    res = t.fit(tiny_data(48, 0), tiny_data(16, 1), progress=None)
+    out["ddp"] = {"history": history(res), "state": t._export_state(opt_to_cpu=True)}
+
+    tp = bert_trainer(shared, "tp", BertClassifier(BertConfig(**inputs["bert_config"]), NUM_CLASSES), get_mesh_2d(2),
+                      BERT_TP_RULES, rolling_checkpoint=True, checkpoint_backend="orbax")
+    tp.init_state()
+    tp.load_weights({"params": inputs["params"], "batch_stats": {}})
+    ds = ids_dataset(inputs["ids"], inputs["labels"])
+    out["tp"] = {"history": history(tp.fit(ds, ds, progress=None)), "params": tp._export_state()["params"],
+                 "query_shape": tuple(tp.model.layer0.attention.query.weight.shape)}
     return out
 
 
