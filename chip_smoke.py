@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0]
 
 On one CUDA card (an H100 is the target), in order ([zoo], 14, runs
-last; [ckpt], 33, follows [ddp]), each phase printing its lines and any
-failure ending the run with a non-zero exit:
+last; [ckpt], 33, follows [ddp], and [knobs], 34, follows [ckpt]), each
+phase printing its lines and any failure ending the run with a non-zero
+exit:
 
 1. device: the card's name and power limit (``nvidia-smi``). TF32 is left
    at the process default: the port's forwards set their own precision
@@ -307,7 +308,26 @@ failure ending the run with a non-zero exit:
    the next epoch; (d) [ddp]'s directories: a ``__<rank>_0.distcp`` file
    per rank, each item written once, the rolling one bit-equal to rank 0's
    model after fit, and (b)'s resumed at world 1 with 0 epochs left. The
-   log-mel kernel's launches of the phase are counted.
+   log-mel kernel's launches of the phase are counted;
+34. knobs (after [ckpt]): ``training.remat`` inside CUDA graphs and
+   ``training.mixup_alpha`` over data-parallel ranks, under
+   ``cudnn.deterministic``. (a) ``pipelines.audio.main`` trains full-width
+   vgg_lstm (B=32, classifier dropout on, 2 epochs device-resident) on
+   [ddp]'s corpus at K = 1 plain, K = 1 remat and K = 4 remat (a CUDA
+   graph): per-step losses, the final test accuracy, the final parameters
+   and the dropout generator bit-equal to K = 1 plain (held to 1e-6
+   relative where not, the difference printed); each run's last train
+   epoch's time a step and its peak memory above its start; (b) bert-base
+   on [cues-train]'s records, CUDA graphs of 4 steps with and without remat
+   for 1 epoch: the losses held as in (a), the epoch's peak memory and a
+   graphed step's device time; (c) vgg_lstm with ``mixup_alpha`` 0.4 through
+   ``pipelines.audio.main``, eager K = 1 against graphs of K = 4 held as in
+   (a); then [ddp]'s runs with mixup: NCCL at world 1 against no process
+   group (1e-6), two gloo ranks sharing the card (the first step's mixed
+   global batch, the ranks' rows joined, bit-equal to world 1's; the steps
+   held as [ddp] (b) holds them; the exchange's bytes a step), and two NCCL
+   ranks where two cards are visible. The log-mel kernel's launches of the
+   phase, the spawned ranks' included, are counted.
 
 Every phase prints its wall time. The video and cue phases, [cv-*] and
 [zoo] launch no hand-written kernel. The request breakdowns load lips
@@ -3583,6 +3603,30 @@ def ddp_graph_run(rank: int, world: int, payload: dict) -> dict:
     return {**out, "graph_losses": losses}
 
 
+def hold_to_one_rank(phase: str, label: str, ranks: list, world1: list) -> None:
+    """Several ranks' run against one rank's (``ddp_run`` results): step
+    1's loss to 1e-5, its summed gradients in norm to 1e-2, the BatchNorm
+    statistics after it to 1e-6, steps 2 and 3 to 1e-3."""
+    ref = world1[0]
+    got = ddp_losses(ranks)[:DDP_STEPS]
+    rel = np.abs(got / ddp_losses(world1)[:DDP_STEPS] - 1.0)
+    bn_err = max(float(((r["bn"][n] - ref["bn"][n]).abs() / (1.0 + ref["bn"][n].abs())).max())
+                 for r in ranks for n in ref["bn"])
+    grad_err, worst, elem = grad_rel_err(ref["grads"], [r["grads"] for r in ranks])
+    apart = max(float((ranks[0]["grads"][n] - r["grads"][n]).abs().max()) for r in ranks for n in ref["grads"])
+    log(phase, f"{label}: the ranks' summed gradients differ by at most {apart:.3e} between ranks")
+    ok = (rel[0] <= DDP_STEP1_RTOL and bool(np.all(rel[1:] <= PARITY_RTOL)) and bn_err <= DDP_BN_TOL
+          and grad_err <= DDP_GRAD_RTOL and set(ranks[0]["grads"]) == set(ref["grads"]))
+    log(phase, f"{label} vs one rank: first {DDP_STEPS} step losses {got.tolist()} relative {rel.tolist()} "
+               f"(tolerance {DDP_STEP1_RTOL:g} for step 1, {PARITY_RTOL:g} after Adam's first updates); step "
+               f"1's summed gradients, every rank, |diff| / |grad| per tensor at most {grad_err:.3e} (worst {worst}, "
+               f"whose largest element differs by {elem:.3e} of its largest; tolerance {DDP_GRAD_RTOL:g}); "
+               f"BatchNorm running statistics after step 1, max |diff| / (1 + |value|) "
+               f"{bn_err:.3e} (tolerance {DDP_BN_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{phase}] {label} departs from one rank")
+
+
 def ddp_losses(runs: list) -> np.ndarray:
     """Per-step losses over every rank of a run: (Σ loss·w) / (Σ w)."""
     rows = sum(r["rows"] for r in runs)
@@ -3640,25 +3684,8 @@ def phase_ddp(seed: int, device_info: dict, tmp: str) -> dict:
                f"expected under cudnn.deterministic) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("[ddp] graphed DDP steps depart from eager ones")
-    ref = world1[0]
     for label, ranks in list(runs.items())[1:]:
-        got = ddp_losses(ranks)[:DDP_STEPS]
-        rel = np.abs(got / ddp_losses(world1)[:DDP_STEPS] - 1.0)
-        bn_err = max(float(((r["bn"][n] - ref["bn"][n]).abs() / (1.0 + ref["bn"][n].abs())).max())
-                     for r in ranks for n in ref["bn"])
-        grad_err, worst, elem = grad_rel_err(ref["grads"], [r["grads"] for r in ranks])
-        apart = max(float((ranks[0]["grads"][n] - r["grads"][n]).abs().max()) for r in ranks for n in ref["grads"])
-        log("ddp", f"{label}: the ranks' summed gradients differ by at most {apart:.3e} between ranks")
-        ok = (rel[0] <= DDP_STEP1_RTOL and bool(np.all(rel[1:] <= PARITY_RTOL)) and bn_err <= DDP_BN_TOL
-              and grad_err <= DDP_GRAD_RTOL and set(ranks[0]["grads"]) == set(ref["grads"]))
-        log("ddp", f"{label} vs (a): first {DDP_STEPS} step losses {got.tolist()} relative {rel.tolist()} "
-                   f"(tolerance {DDP_STEP1_RTOL:g} for step 1, {PARITY_RTOL:g} after Adam's first updates); step "
-                   f"1's summed gradients, every rank, |diff| / |grad| per tensor at most {grad_err:.3e} (worst {worst}, "
-                   f"whose largest element differs by {elem:.3e} of its largest; tolerance {DDP_GRAD_RTOL:g}); "
-                   f"BatchNorm running statistics after step 1, max |diff| / (1 + |value|) "
-                   f"{bn_err:.3e} (tolerance {DDP_BN_TOL:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"[ddp] {label} departs from one rank")
+        hold_to_one_rank("ddp", label, ranks, world1)
     for label, ranks in [("no process group", [alone])] + list(runs.items()):
         h = ranks[0]["history"][-1]
         log("ddp", f"{label}: epoch {h['epoch']} train {h['train_loss']:.4f}/{h['train_acc']:.2f}% val "
@@ -4175,6 +4202,312 @@ def phase_ckpt(seed: int, device_info: dict, tmp: str, cue_root: str, ddp: dict)
     return launches
 
 
+# [knobs]: remat inside graphed steps_per_dispatch, mixup over data-parallel
+# ranks (train/trainer.py)
+KNOBS_EPOCHS, KNOBS_MIXUP_EPOCHS = 2, 1
+KNOBS_MIXUP_ALPHA = 0.4
+# runs that should be bit-equal (under cudnn.deterministic) are held to
+# this relative bound where they are not, with the difference printed
+KNOBS_RTOL = 1e-6
+KNOBS_TIMED_REPLAYS = 3
+
+
+@contextlib.contextmanager
+def knob_clock():
+    """Inside the block, every ``Trainer.fit``'s trainer is kept, and for
+    every ``Trainer.train_epoch`` its wall time (the card synchronized
+    around it), the memory allocated when it began and its peak
+    (``torch.cuda.max_memory_allocated``, reset when it began)."""
+    from multimodal_lipread_torch.train import trainer as trainer_module
+
+    rec: dict = {"trainers": [], "epochs": []}
+    fit, epoch = trainer_module.Trainer.fit, trainer_module.Trainer.train_epoch
+
+    def kept_fit(self, *args, **kwargs):
+        rec["trainers"].append(self)
+        return fit(self, *args, **kwargs)
+
+    def clocked_epoch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = epoch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["epochs"].append({"s": time.perf_counter() - t0, "start": start, "peak": torch.cuda.max_memory_allocated()})
+        return out
+
+    trainer_module.Trainer.fit, trainer_module.Trainer.train_epoch = kept_fit, clocked_epoch
+    try:
+        yield rec
+    finally:
+        trainer_module.Trainer.fit, trainer_module.Trainer.train_epoch = fit, epoch
+
+
+def knobs_audio_config(root: str, base: str, seed: int, epochs: int, **training) -> "Config":
+    """[train]'s recipe for full-width vgg_lstm on ``root``, device-resident,
+    with ``training`` on top (no rolling checkpoint)."""
+    from multimodal_lipread_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"root_dir": root, "num_classes": len(WORDS), "input_size": 117},
+        "model": {"name": "vgg_lstm", "version": VGG_VERSION, "dtype": "float32"},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": epochs, "learning_rate": TRAIN_LR,
+                     "weight_decay": TRAIN_WD, "seed": seed, "device_resident": True, **training},
+        "output": {"base_dir": base, "plots": False},
+    })
+
+
+def knobs_audio_run(label: str, root: str, tmp: str, seed: int, epochs: int, **training) -> dict:
+    """``pipelines.audio.main`` with ``training``: its result, per-step
+    losses (train and eval), the trainer, each train epoch's clock, the
+    graphs captured and the log-mel launches."""
+    from multimodal_lipread_torch.ops import logmel_cuda
+    from multimodal_lipread_torch.pipelines import audio as audio_pipeline
+
+    cfg = knobs_audio_config(root, os.path.join(tmp, label.replace(" ", "_")), seed, epochs, **training)
+    before = logmel_cuda.launch_count
+    with knob_clock() as clock, recorded_losses() as rec:
+        t0 = time.perf_counter()
+        result = audio_pipeline.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    (trainer,) = clock["trainers"]
+    return {"label": label, "result": result, "losses": flat_losses(rec), "trainer": trainer,
+            "epochs": clock["epochs"], "wall": wall, "launches": logmel_cuda.launch_count - before,
+            "graphs": sorted(kind for kind, _ in trainer._graphs)}
+
+
+def max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest |got − want| / |want| (inf where the shapes differ)."""
+    if got.shape != want.shape:
+        return float("inf")
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max()) if want.size else 0.0
+
+
+def state_rel(a: torch.nn.Module, b: torch.nn.Module) -> tuple:
+    """(bit-equal, the largest |a − b| over the largest |b| of any tensor) of
+    two models' state."""
+    sa, sb = a.state_dict(), b.state_dict()
+    equal = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sb)
+    worst = max(float((sa[k].double() - sb[k].double()).abs().max()) / max(float(sb[k].double().abs().max()), 1e-30)
+                for k in sb if sb[k].numel() and sb[k].is_floating_point())
+    return equal, worst
+
+
+def hold_runs(phase: str, what: str, runs: list, ref: dict) -> None:
+    """Each run against ``ref``: per-step losses, the final test accuracy and
+    the model's final state bit-equal (held to ``KNOBS_RTOL`` relative
+    otherwise, the difference printed), and the dropout generators in the
+    same state."""
+    for run in runs:
+        loss_equal = bool(np.array_equal(run["losses"], ref["losses"]))
+        loss_rel = max_rel(run["losses"], ref["losses"])
+        acc = run["result"].get("final_test_acc"), ref["result"].get("final_test_acc")
+        state_equal, state_err = state_rel(run["trainer"].model, ref["trainer"].model)
+        same_gen = run["trainer"].dropout_generator.get_state().equal(ref["trainer"].dropout_generator.get_state())
+        ok = (bool(np.isfinite(run["losses"]).all()) and loss_rel <= KNOBS_RTOL and acc[0] == acc[1]
+              and state_err <= KNOBS_RTOL and same_gen)
+        log(phase, f"{what}: {run['label']} vs {ref['label']}: {len(run['losses'])} per-step losses bit-equal "
+                   f"{loss_equal} (largest relative difference {loss_rel:.3e}), final test acc {acc[0]} vs {acc[1]}, "
+                   f"final parameters and statistics bit-equal {state_equal} (largest difference {state_err:.3e} "
+                   f"of the tensor's largest), dropout generator in the same state {same_gen} (bound "
+                   f"{KNOBS_RTOL:g} where not bit-equal) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[{phase}] {what}: {run['label']} departs from {ref['label']}")
+
+
+def knobs_epoch_line(run: dict) -> str:
+    """A run's last train epoch: its wall time a step, the memory allocated
+    when it began and its peak."""
+    last = run["epochs"][-1]
+    steps = run["trainer"].step // len(run["epochs"])
+    return (f"last train epoch {last['s'] * 1e3:.2f} ms, {last['s'] * 1e3 / steps:.3f} ms a step ({steps} steps; "
+            f"graphs {run['graphs'] or 'none'}); memory allocated at its start {last['start'] / 2**20:.1f} MiB, "
+            f"peak {last['peak'] / 2**20:.1f} MiB (+{(last['peak'] - last['start']) / 2**20:.1f} MiB)")
+
+
+def knobs_remat(seed: int, root: str, tmp: str, smi: str) -> int:
+    """[knobs] (a): full-width vgg_lstm through ``pipelines.audio.main``,
+    device-resident, K = 1 plain, K = 1 remat, K = 4 remat (a CUDA graph).
+    Returns the log-mel launches."""
+    runs = [knobs_audio_run(label, root, tmp, seed, KNOBS_EPOCHS, **training) for label, training in (
+        ("K=1 plain", {"steps_per_dispatch": 1}),
+        ("K=1 remat", {"steps_per_dispatch": 1, "remat": True}),
+        (f"K={GRAPH_K} remat", {"steps_per_dispatch": GRAPH_K, "remat": True}))]
+    for run in runs:
+        log("knobs", f"(a) vgg_lstm VGG{VGG_VERSION}-BN + BiLSTM 2x128 (classifier dropout 0.3), B={TRAIN_BATCH}, "
+                     f"{KNOBS_EPOCHS} epochs device-resident, {run['label']}: pipelines.audio.main {run['wall']:.2f} s, "
+                     f"final test acc {run['result']['final_test_acc']:.2f}%, log-mel launches {run['launches']}; "
+                     f"{knobs_epoch_line(run)} | {smi}")
+    graphed = runs[2]["trainer"]
+    if "train" not in runs[2]["graphs"]:
+        raise SystemExit("[knobs] (a) the remat run with steps_per_dispatch > 1 captured no train graph")
+    if not graphed._twin_generator.get_state().equal(graphed.dropout_generator.get_state()):
+        raise SystemExit("[knobs] (a) the recompute's twin generator left the dropout generator's step")
+    hold_runs("knobs", "(a)", runs[1:], runs[0])
+    plain, remat = runs[0]["epochs"][-1], runs[1]["epochs"][-1]
+    log("knobs", f"(a) remat against plain at K=1, last epoch: peak above the epoch's start "
+                 f"{(remat['peak'] - remat['start']) / 2**20:.1f} vs {(plain['peak'] - plain['start']) / 2**20:.1f} MiB, "
+                 f"epoch {remat['s'] * 1e3:.2f} vs {plain['s'] * 1e3:.2f} ms | {smi}")
+    return sum(run["launches"] for run in runs)
+
+
+def knobs_bert(seed: int, cues: dict, tmp: str, smi: str) -> None:
+    """[knobs] (b): bert-base on [cues-train]'s records, device-resident,
+    CUDA graphs of K = 4 steps with and without remat for 1 epoch (the
+    plateau LR: a per-step schedule would fall back to per-step dispatch):
+    per-step losses held as in (a), the epoch's peak memory, and a graphed
+    step's device time by CUDA events over replays of a group."""
+    from multimodal_lipread_torch.models.cues import get_cue_model
+    from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+
+    train_ds = cues["datasets"]["train"]
+    runs = []
+    for label, remat in (("plain", False), ("remat", True)):
+        trainer = Trainer(get_cue_model("bert", len(WORDS), bert_size="base"), TrainerConfig(
+            model_name="bert", num_classes=len(WORDS), batch_size=CUES_BATCH, epochs=1,
+            learning_rate=CUES_SET["training.learning_rate"], weight_decay=0.0, seed=seed, remat=remat,
+            device_resident=True, steps_per_dispatch=GRAPH_K,
+            metrics_dir=os.path.join(tmp, "bert", label, "metrics"),
+            checkpoints_dir=os.path.join(tmp, "bert", label, "ckpt")), device=DEVICE)
+        trainer.init_state()
+        with knob_clock() as clock, recorded_losses() as rec:
+            trainer.train_epoch(train_ds, np.random.default_rng(seed))
+        if ("train", id(train_ds)) not in trainer._graphs:
+            raise SystemExit(f"[knobs] (b) bert-base {label} captured no train graph")
+        idxs, ws = next(trainer._index_groups(len(train_ds), False, np.random.default_rng(0)))[1]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(KNOBS_TIMED_REPLAYS):
+            trainer._run_group("train", train_ds, None, idxs, ws)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / (KNOBS_TIMED_REPLAYS * GRAPH_K)
+        epoch = clock["epochs"][0]
+        runs.append({"label": f"bert-base {label}", "losses": flat_losses(rec), "trainer": trainer,
+                     "result": {}, "step_ms": step_ms, "epoch": epoch})
+        log("knobs", f"(b) bert-base (12 layers, hidden 768, dropout 0.1), B={CUES_BATCH} x 32 tokens, float32, "
+                     f"{len(train_ds)} records, CUDA graphs of {GRAPH_K} steps, {label}: epoch {epoch['s'] * 1e3:.2f} ms "
+                     f"(the first group eager, then the capture); a graphed step {step_ms:.3f} ms (CUDA events over "
+                     f"{KNOBS_TIMED_REPLAYS} replays); memory allocated at the epoch's start "
+                     f"{epoch['start'] / 2**20:.1f} MiB, peak {epoch['peak'] / 2**20:.1f} MiB "
+                     f"(+{(epoch['peak'] - epoch['start']) / 2**20:.1f} MiB) | {smi}")
+    # the replays timed above moved both models alike after the epoch
+    hold_runs("knobs", "(b)", runs[1:], runs[0])
+    plain, remat = runs
+    log("knobs", f"(b) remat against plain: peak {remat['epoch']['peak'] / 2**20:.1f} vs "
+                 f"{plain['epoch']['peak'] / 2**20:.1f} MiB ({(remat['epoch']['peak'] - plain['epoch']['peak']) / 2**20:+.1f}"
+                 f" MiB), graphed step {remat['step_ms']:.3f} vs {plain['step_ms']:.3f} ms "
+                 f"({100 * (remat['step_ms'] / plain['step_ms'] - 1):+.1f} %) | {smi}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def knobs_mixup_run(rank: int, world: int, payload: dict) -> dict:
+    """``ddp_run`` with this rank's first mixed batch kept (its mixed inputs
+    and soft labels) and the bytes of the last exchange."""
+    from multimodal_lipread_torch.train import trainer as trainer_module
+
+    first: dict = {}
+    mix = trainer_module.Trainer._mixup
+
+    def kept(self, *args, **kwargs):
+        out = mix(self, *args, **kwargs)
+        if not first:
+            first.update(x=out[0][0].detach().cpu().clone(), y=out[1].detach().cpu().clone())
+        first["bytes"] = self.exchange_bytes
+        return out
+
+    trainer_module.Trainer._mixup = kept
+    try:
+        out = ddp_run(rank, world, payload)
+    finally:
+        trainer_module.Trainer._mixup = mix
+    return {**out, "mix": first}
+
+
+def knobs_mixup(seed: int, root: str, ddp: dict, tmp: str, smi: str) -> int:
+    """[knobs] (c): mixup through ``pipelines.audio.main``: eager K = 1 vs
+    device-resident CUDA graphs of K = 4 (the Dirichlet draw captured with
+    the registered generator); then [ddp]'s runs with mixup: NCCL at world 1
+    against no process group, two gloo ranks sharing the card (their first
+    mixed batch joined against world 1's, their steps held as [ddp] (b)),
+    NCCL across two cards where they are visible. Returns the log-mel
+    launches."""
+    alpha = {"mixup_alpha": KNOBS_MIXUP_ALPHA}
+    runs = [knobs_audio_run(label, root, tmp, seed, KNOBS_MIXUP_EPOCHS, **training) for label, training in (
+        ("mixup K=1", {"steps_per_dispatch": 1, **alpha}),
+        (f"mixup K={GRAPH_K}", {"steps_per_dispatch": GRAPH_K, **alpha}))]
+    for run in runs:
+        log("knobs", f"(c) vgg_lstm B={TRAIN_BATCH}, mixup_alpha {KNOBS_MIXUP_ALPHA:g}, {KNOBS_MIXUP_EPOCHS} epoch "
+                     f"device-resident, {run['label']}: pipelines.audio.main {run['wall']:.2f} s, log-mel launches "
+                     f"{run['launches']}; {knobs_epoch_line(run)} | {smi}")
+    if "train" not in runs[1]["graphs"]:
+        raise SystemExit("[knobs] (c) the mixup run with steps_per_dispatch > 1 captured no train graph")
+    hold_runs("knobs", "(c)", runs[1:], runs[0])
+    launches = sum(run["launches"] for run in runs)
+
+    config = json.loads(json.dumps(ddp["config"]))
+    config["training"].update({"checkpoint_backend": "msgpack", "rolling_checkpoint": False, **alpha})
+    payload = {"smi": smi, "base": os.path.join(tmp, "ranks"), "config": config}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        alone = knobs_mixup_run(0, 1, {**payload, "label": "mixup, no process group"})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    world1 = spawn_ranks(knobs_mixup_run, 1, "nccl", {**payload, "label": "mixup, world 1 NCCL"}, tmp)
+    ranked = {"world 2 gloo": spawn_ranks(knobs_mixup_run, 2, "gloo",
+                                          {**payload, "label": "mixup, world 2 gloo, one card"}, tmp)}
+    if torch.cuda.device_count() >= 2:
+        ranked["world 2 NCCL"] = spawn_ranks(knobs_mixup_run, 2, "nccl", {**payload, "label": "mixup, world 2 NCCL"},
+                                             tmp)
+    else:
+        log("knobs", f"(c) mixup over NCCL on two cards: not run, {torch.cuda.device_count()} card visible")
+    want, got = ddp_losses([alone]), ddp_losses(world1)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    ok = err <= DDP_WORLD1_TOL and bool(np.isfinite(got).all())
+    log("knobs", f"(c) mixup, NCCL at world 1 vs no process group: {len(got)} step losses, max abs diff {err:.3e} "
+                 f"(tolerance {DDP_WORLD1_TOL:g}, bit-equal {bool(np.array_equal(got, want))}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[knobs] mixup at world 1 over NCCL departs from the run without a process group")
+    for label, ranks in ranked.items():
+        joined = {k: torch.cat([r["mix"][k] for r in ranks]) for k in ("x", "y")}
+        same = all(joined[k].shape == world1[0]["mix"][k].shape and torch.equal(joined[k], world1[0]["mix"][k])
+                   for k in ("x", "y"))
+        log("knobs", f"(c) {label}: the first step's mixed global batch ({tuple(joined['x'].shape)} inputs, "
+                     f"{tuple(joined['y'].shape)} soft labels), the ranks' rows joined, bit-equal to world 1's: {same}; "
+                     f"the exchange all-reduces {ranks[0]['mix']['bytes']} bytes a step on each rank "
+                     f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"[knobs] {label}: the mixed global batch departs from world 1's")
+        hold_to_one_rank("knobs", f"(c) {label}", ranks, world1)
+    every = [alone] + world1 + [r for ranks in ranked.values() for r in ranks]
+    if min(r["launches"] for r in every) < 1:
+        raise SystemExit("[knobs] a mixup run over ranks never launched the log-mel kernel")
+    return launches + sum(r["launches"] for r in every)
+
+
+def phase_knobs(seed: int, device_info: dict, tmp: str, cues: dict, ddp: dict) -> int:
+    """``training.remat`` inside CUDA graphs and ``training.mixup_alpha``
+    over data-parallel ranks on the card, (a) to (c), under
+    ``cudnn.deterministic``; returns the log-mel kernel's launches in the
+    phase (the spawned ranks' included)."""
+    smi = device_info["smi"]
+    tmp = os.path.join(tmp, "knobs")
+    root = ddp["config"]["dataset"]["root_dir"]  # [ddp]'s corpus: [train]'s, from --seed
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = knobs_remat(seed, root, tmp, smi)
+        knobs_bert(seed, cues, tmp, smi)
+        launches += knobs_mixup(seed, root, ddp, tmp, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("knobs", f"log-mel kernel launches in the phase: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4224,10 +4557,11 @@ def main(argv=None) -> int:
             "cues": cues["datasets"]["train"], "audio_cues": ac["datasets"]["train"]})
         ddp = timed("ddp", phase_ddp, seed, device_info, tmp)
         ckpt_launches = timed("ckpt", phase_ckpt, seed, device_info, tmp, cues["root"], ddp)
+        knobs_launches = timed("knobs", phase_knobs, seed, device_info, tmp, cues, ddp)
         timed("tp", phase_tp, seed, device_info, tmp)
         timed("pp", phase_pp, seed, device_info)
         dp_launches = timed("dp-serve", phase_dp_serve, seed, device_info)
-        launches += ddp["launches"] + ckpt_launches + dp_launches
+        launches += ddp["launches"] + ckpt_launches + knobs_launches + dp_launches
         timed("zoo", phase_zoo, seed, device_info, av, video["best"], tmp, cues, ac, cv, acv)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4248,7 +4582,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "paths": ["serve", "train", "stream-train", "native-stream", "load-test", "export", "av-train", "av-serve",
                   "ac-train", "ac-serve", "acv-train", "acv-serve", "serve-cold", "frozen", "ddp", "ckpt",
-                  "dp-serve"],
+                  "knobs", "dp-serve"],
     }, {
         "name": "crop_resize",
         "route": "cuda",

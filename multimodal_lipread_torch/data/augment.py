@@ -7,11 +7,14 @@ are apart: :func:`draw_mixup` takes λ ~ Beta(α, α) and one permutation of
 the batch from a ``torch.Generator`` on the batch's device, with no read
 back to the host (so a CUDA graph can capture it); :func:`mixup` is the
 pure function of the JAX package's ``mixup`` at a given λ and permutation.
+Under data parallelism the batch is the global one: every rank draws the
+same λ and permutation of the global rows and mixes its own rows with the
+global rows the permutation points to (``pool``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -27,14 +30,19 @@ def draw_mixup(generator: torch.Generator, batch: int, alpha: float,
     return lam, perm
 
 
-def mixup(inputs: Sequence[torch.Tensor], labels_onehot: torch.Tensor, lam: torch.Tensor,
-          perm: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
-    """The convex combination of a batch with its rows in ``perm`` order:
-    every input ``x·λ + x[perm]·(1 − λ)`` (λ cast to the input's dtype) and
-    the (B, C) soft labels ``y·λ + y[perm]·(1 − λ)``."""
+def mixup(inputs: Sequence[torch.Tensor], labels_onehot: torch.Tensor, lam: torch.Tensor, perm: torch.Tensor,
+          pool: Optional[Tuple[Sequence[torch.Tensor], torch.Tensor]] = None
+          ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """The convex combination of a batch with the rows ``perm`` of ``pool``
+    (``(inputs, labels_onehot)`` of the batch to draw partners from; the
+    batch itself by default): every input ``x·λ + p[perm]·(1 − λ)`` (λ cast
+    to the input's dtype) and the (B, C) soft labels ``y·λ + q[perm]·(1 −
+    λ)``. ``perm`` holds one partner row per row of the batch."""
+    pool_inputs, pool_onehot = pool if pool is not None else (inputs, labels_onehot)
 
-    def mix(x: torch.Tensor) -> torch.Tensor:
+    def mix(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         lam_x = lam.to(x.dtype)
-        return x * lam_x + x[perm] * (1.0 - lam_x)
+        return x * lam_x + p[perm] * (1.0 - lam_x)
 
-    return tuple(mix(x) for x in inputs), labels_onehot * lam + labels_onehot[perm] * (1.0 - lam)
+    return (tuple(mix(x, p) for x, p in zip(inputs, pool_inputs)),
+            labels_onehot * lam + pool_onehot[perm] * (1.0 - lam))

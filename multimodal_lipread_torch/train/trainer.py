@@ -61,16 +61,22 @@ device-resident ``ArrayDataset``, falls back to per-step dispatch with the
 JAX trainer's warnings.
 
 ``remat`` recomputes the forward in the backward
-(``torch.utils.checkpoint``), restoring the dropout generator and the
-BatchNorm statistics around the recompute so that it draws the same masks
-and moves nothing twice; it is refused under CUDA graphs. ``mixup_alpha``
-mixes full batches after the cast (``data/augment.py``), with soft-label
-cross entropy. ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
-the first epoch. ``handle_preemption`` turns SIGTERM/SIGINT into
-``request_preemption``: the step in flight finishes, the rolling checkpoint
-is written from a host snapshot of the epoch's start (the dropout
-generator's state included) labelled ``epoch - 1``, and ``fit`` returns
-``preempted=True``; ``--resume`` replays that epoch exactly.
+(``torch.utils.checkpoint``). The recompute draws its dropout masks from a
+twin of the dropout generator that takes every draw the dropout generator
+takes, one forward behind, so it draws the forward's masks and leaves the
+dropout generator where the forward left it; it keeps the BatchNorm
+statistics as the forward left them. Nothing is read or set on the host,
+so a CUDA graph of K steps captures it, and eager and graphed steps, on the
+card and on the CPU, take the same code. ``mixup_alpha`` mixes full
+batches after the cast (``data/augment.py``), with soft-label cross
+entropy; with several data-parallel ranks the batch is the global one (one
+λ and one permutation of every rank's rows). ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of the first epoch. ``handle_preemption``
+turns SIGTERM/SIGINT into ``request_preemption``: the step in flight
+finishes, the rolling checkpoint is written from a host snapshot of the
+epoch's start (the dropout generator's state included) labelled
+``epoch - 1``, and ``fit`` returns ``preempted=True``; ``--resume`` replays
+that epoch exactly.
 
 Multi-GPU (one process per rank, ``parallel/``), with the JAX trainer's
 semantics on a mesh, so that W ranks give the one-rank run's math:
@@ -107,9 +113,10 @@ semantics on a mesh, so that W ranks give the one-rank run's math:
   processes do.
 
 On the card, K > 1 graphed ``steps_per_dispatch`` captures DDP's step with
-its NCCL all-reduce (DDP built on a side stream, its first 11 steps run
-eagerly, the capture thread-local because NCCL's watchdog queries events);
-over gloo it raises ``NotImplementedError`` (ROADMAP.md, Queue 3 #16). The
+its NCCL all-reduce and mixup's exchange (DDP built on a side stream, its
+first 11 steps run eagerly, the capture thread-local because NCCL's
+watchdog queries events); over gloo it raises ``NotImplementedError``
+(ROADMAP.md, Queue 3 #16). The
 trainer runs on ``device`` ("cuda" unless the caller asks for the CPU).
 """
 
@@ -312,13 +319,13 @@ class _StepGroupGraph:
     it runs the first group for real, eagerly, on the capture stream (so
     that lazily made state, Adam's moments, cuBLAS workspaces and the
     log-mel kernel's scratch, exists before capture), and then captures the
-    same K calls, which run no work. ``generator`` (the dropout generator)
-    is registered with the graph: each replay draws from where the last
-    draw left it, as eager steps do. Both return the (K, 4) stats of the
-    K calls."""
+    same K calls, which run no work. ``generators`` (the dropout generator
+    and, under remat, its twin) are registered with the graph: each replay
+    draws from where the last draw left them, as eager steps do. Both
+    return the (K, 4) stats of the K calls."""
 
     def __init__(self, step: Callable, idxs: np.ndarray, ws: np.ndarray, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generators: Sequence[torch.Generator] = ()):
         self.idx = torch.from_numpy(idxs).to(device)
         self.w = torch.from_numpy(ws).to(device)
         k = self.idx.shape[0]
@@ -327,7 +334,7 @@ class _StepGroupGraph:
         with torch.cuda.stream(stream):
             self.first = torch.stack([step(self.idx[i], self.w[i]) for i in range(k)])
         self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
+        for generator in generators:
             self.graph.register_generator_state(generator)
         # thread-local under a process group: NCCL's watchdog thread queries
         # its events while this thread captures
@@ -398,11 +405,17 @@ class Trainer:
             None if cw is None else torch.as_tensor(np.asarray(cw, np.float32), device=self.device)
         )
         self.dropout_generator = torch.Generator(device=self.device)
+        # under remat, the recompute's generator: it takes every draw the
+        # dropout generator takes (the recompute mirrors the forward, and
+        # mixup's draw is made on both), so it stands where the dropout
+        # generator stood when the forward began (_remat_contexts)
+        self._twin_generator = torch.Generator(device=self.device) if config.remat else None
+        self._dropouts = [m for m in self.model.modules() if isinstance(m, Dropout)]
+        for m in self._dropouts:
+            m.generator = self.dropout_generator
+            m.data_shard = (self._data_index, self._data_size)
         self.dropout_generator.manual_seed(config.seed + 1)
-        for m in self.model.modules():
-            if isinstance(m, Dropout):
-                m.generator = self.dropout_generator
-                m.data_shard = (self._data_index, self._data_size)
+        self._sync_twin()
         # per-step LR function, built in fit() once the step count is known
         self._lr_step_fn: Optional[Callable[[int], float]] = None
         # keyword arguments every forward receives (set_apply_kwargs)
@@ -412,17 +425,13 @@ class Trainer:
         self._device_data: Dict[int, Tuple[Any, Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]] = {}
         self._graphs: Dict[Tuple[str, int], _StepGroupGraph] = {}
         self._preempted = False
+        self.exchange_bytes = 0  # bytes mixup's last exchange all-reduced (_global_rows)
 
     # ------------------------------------------------------------ parallel
 
     def _check_parallel(self) -> None:
-        """The JAX trainer's refusals under pipeline parallelism, and mixup
-        over several data-parallel ranks (it mixes rows across the global
-        batch, which no rank holds)."""
+        """The JAX trainer's refusals under pipeline parallelism."""
         cfg = self.config
-        if cfg.mixup_alpha > 0 and self._data_size > 1:
-            raise NotImplementedError("mixup with several data-parallel ranks: the JAX trainer mixes rows of the "
-                                      "global batch, which no rank holds (ROADMAP.md, Queue 3 #16)")
         if not self._pp:
             return
         if not self._rules:
@@ -493,13 +502,37 @@ class Trainer:
         self._ddp_steps += 1
         return self._ddp
 
-    def _global_wsum(self, wsum: torch.Tensor) -> torch.Tensor:
-        """Σw over every data-parallel rank's slice."""
-        if self._data_group is None:
-            return wsum
-        total = wsum.detach().clone()
-        dist.all_reduce(total, group=self._data_group)
+    def _global_sums(self, *sums: torch.Tensor) -> torch.Tensor:
+        """The 0-d ``sums`` of this rank's slice, stacked and added over
+        every data-parallel rank's slice in one all-reduce."""
+        total = torch.stack([v.detach() for v in sums])
+        if self._data_group is not None:
+            dist.all_reduce(total, group=self._data_group)
         return total
+
+    def _global_rows(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every data-parallel rank's rows of ``tensors`` joined in rank
+        order (the global batch): each rank writes its rows at its offset
+        in a zeroed buffer (one a dtype, the tensors' rows flattened side by
+        side) and one all-reduce sum a buffer puts them together. Adding
+        zeros is exact, and gloo runs ``all_reduce`` on CUDA tensors where
+        it runs no ``all_gather``. ``exchange_bytes`` counts the buffers."""
+        rows, ranks = tensors[0].shape[0], self._data_size
+        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        self.exchange_bytes = 0
+        for dtype, members in by_dtype.items():
+            widths = [tensors[i][0].numel() for i in members]
+            buf = torch.zeros((ranks * rows, sum(widths)), dtype=dtype, device=tensors[0].device)
+            buf[self._data_index * rows:(self._data_index + 1) * rows] = torch.cat(
+                [tensors[i].reshape(rows, -1) for i in members], dim=1)
+            dist.all_reduce(buf, group=self._data_group)
+            self.exchange_bytes += buf.numel() * buf.element_size()
+            for i, part in zip(members, buf.split(widths, dim=1)):
+                out[i] = part.reshape(ranks * rows, *tensors[i].shape[1:])
+        return out
 
     def _shard_rows(self, idx: np.ndarray, weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """This rank's contiguous slice of a global batch."""
@@ -653,24 +686,32 @@ class Trainer:
     def _example_weights(self, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         return weights if self._class_weights is None else weights * self._class_weights[labels]
 
+    def _sync_twin(self) -> None:
+        """Put the twin generator where the dropout generator stands; every
+        seeding or restore of the dropout generator on the host ends here."""
+        if self._twin_generator is not None:
+            self._twin_generator.set_state(self.dropout_generator.get_state())
+
     def _remat_contexts(self):
         """``torch.utils.checkpoint``'s (forward, recompute) contexts: the
-        recompute runs from the dropout generator's state at the forward
-        and with the BatchNorm statistics kept as the forward left them, so
-        it draws the same masks and moves no statistic twice."""
-        generator = self.dropout_generator
-        at_forward = generator.get_state()
+        recompute's dropout modules draw from the twin generator, which
+        stands where the dropout generator stood when the forward began, and
+        the BatchNorm statistics are kept as the forward left them, so it
+        draws the forward's masks, leaves the dropout generator where the
+        forward left it and moves no statistic twice. No state is read or
+        set on the host: a CUDA graph captures it."""
         buffers = list(self.model.buffers())
 
         @contextlib.contextmanager
         def recompute():
-            after = generator.get_state()
             kept = [b.clone() for b in buffers]
-            generator.set_state(at_forward)
+            for m in self._dropouts:
+                m.generator = self._twin_generator
             try:
                 yield
             finally:
-                generator.set_state(after)
+                for m in self._dropouts:
+                    m.generator = self.dropout_generator
                 with torch.no_grad():
                     for b, k in zip(buffers, kept):
                         b.copy_(k)
@@ -685,9 +726,40 @@ class Trainer:
 
         if not self.config.remat:
             return forward(*inputs)
-        from torch.utils.checkpoint import checkpoint
+        from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-        return checkpoint(forward, *inputs, use_reentrant=False, context_fn=self._remat_contexts)
+        # preserve_rng_state=False: stashing torch's default generators reads
+        # their state on the host, which a capture cannot record, and nothing
+        # on the path draws from them (dropout draws from the trainer's
+        # generator). No early stop: the recompute draws every mask the
+        # forward drew, so that the twin generator keeps in step.
+        with set_checkpoint_early_stop(False):
+            return checkpoint(forward, *inputs, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=self._remat_contexts)
+
+    def _mixup(self, xs: Tuple[torch.Tensor, ...], labels: torch.Tensor,
+               global_count: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+        """The JAX step's mixup over the global batch of every data-parallel
+        rank's rows: one λ and one permutation of the global rows (drawn
+        alike on every rank, whose dropout generators stay in step), this
+        rank's inputs and one-hot labels mixed with the global rows the
+        permutation points to (``_global_rows``: the inputs and the labels,
+        not their one-hot rows); unmixed unless every global row has weight
+        1 (``global_count``: a weight-0 padding row would leak in)."""
+        rows, cfg = labels.shape[0], self.config
+        ranks = self._data_size if self._data_group is not None else 1
+        lam, perm = draw_mixup(self.dropout_generator, ranks * rows, cfg.mixup_alpha, self.device)
+        if self._twin_generator is not None:
+            draw_mixup(self._twin_generator, ranks * rows, cfg.mixup_alpha, self.device)
+        onehot = F.one_hot(labels, cfg.num_classes).to(torch.float32)
+        pool = None
+        if ranks > 1:
+            *pool_xs, pool_labels = self._global_rows([*xs, labels.to(torch.float32)])
+            pool = (pool_xs, F.one_hot(pool_labels.long(), cfg.num_classes).to(torch.float32))
+            perm = perm.narrow(0, self._data_index * rows, rows)
+        mixed, mixed_onehot = mixup(xs, onehot, lam, perm, pool)
+        full = global_count == ranks * rows
+        return tuple(torch.where(full, m, x) for m, x in zip(mixed, xs)), torch.where(full, mixed_onehot, onehot)
 
     def train_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
@@ -701,16 +773,12 @@ class Trainer:
             xs = self._prepare_inputs(inputs)
             w = self._example_weights(labels, weights)
             wsum = w.sum()
-            global_wsum = self._global_wsum(wsum)
+            # one all-reduce: Σw, and the weights' count that says whether
+            # the global batch is full (mixup)
+            global_wsum, global_count = self._global_sums(wsum, weights.sum())
             target = labels
             if self.config.mixup_alpha > 0:
-                lam, perm = draw_mixup(self.dropout_generator, labels.shape[0], self.config.mixup_alpha, self.device)
-                onehot = F.one_hot(labels, self.config.num_classes).to(torch.float32)
-                mixed, mixed_onehot = mixup(xs, onehot, lam, perm)
-                # only full batches mix: a weight-0 padding row would leak in
-                full = weights.sum() == weights.shape[0]
-                xs = tuple(torch.where(full, m, x) for m, x in zip(mixed, xs))
-                target = torch.where(full, mixed_onehot, onehot)
+                xs, target = self._mixup(xs, labels, global_count)
             logits = self._train_forward(xs).float()
             ce_w = (F.cross_entropy(logits, target, reduction="none") * w).sum()
             self.optimizer.zero_grad(set_to_none=True)
@@ -740,7 +808,7 @@ class Trainer:
             (ids,) = self._prepare_inputs(inputs)
             w = self._example_weights(labels, weights)
             self.optimizer.zero_grad(set_to_none=True)
-            stats = gpipe_train_step(self.model, ids, labels, weights, w, self._global_wsum(w.sum()), self.mesh,
+            stats = gpipe_train_step(self.model, ids, labels, weights, w, self._global_sums(w.sum())[0], self.mesh,
                                      self.model.num_microbatches)
             reduce_grads(self.model, self.mesh)
         self.optimizer.step()
@@ -896,9 +964,9 @@ class Trainer:
         key = (kind, id(ds))
         graph = self._graphs.get(key)
         if graph is None:
-            generator = self.dropout_generator if kind == "train" else None
+            generators = [g for g in (self.dropout_generator, self._twin_generator) if g is not None]
             steps_before = self.step
-            graph = _StepGroupGraph(step, idxs, ws, self.device, generator)
+            graph = _StepGroupGraph(step, idxs, ws, self.device, generators if kind == "train" else ())
             self.step = steps_before + (len(idxs) if kind == "train" else 0)  # capture ran no step
             self._graphs[key] = graph
             return graph.first
@@ -925,6 +993,7 @@ class Trainer:
         returns its loss (over every rank's slice)."""
         self.ensure_initialized()
         self.dropout_generator.manual_seed(seed)
+        self._sync_twin()
         inputs, labels, weights = next(self.batches(ds, False, np.random.default_rng(seed)))
         stats = self.train_step(inputs, labels, weights).double()
         if self._data_group is not None:
@@ -1156,11 +1225,6 @@ class Trainer:
                 "per-step dispatch",
                 stacklevel=2,
             )
-        if cfg.remat and self.device.type == "cuda" and self._graphed(train_ds):
-            raise NotImplementedError(
-                "training.remat with steps_per_dispatch > 1 on the card: the recompute sets the dropout "
-                "generator's state from the host, which a CUDA graph cannot capture (ROADMAP.md, Queue 3 #15)"
-            )
         if (self.mesh is not None and self.device.type == "cuda" and self._graphed(train_ds)
                 and dist.get_backend() != "nccl"):
             raise NotImplementedError(
@@ -1192,6 +1256,7 @@ class Trainer:
     def _fit_loop(self, train_ds, val_ds, test_ds, resume, progress) -> Dict[str, Any]:
         cfg = self.config
         self.dropout_generator.manual_seed(cfg.seed + 1)
+        self._sync_twin()
         self._graphs.clear()  # captured against another run's generator state
         start_epoch = 1
         best_val_acc = -1.0
@@ -1209,6 +1274,7 @@ class Trainer:
             # the rolling checkpoint's val_acc is the last epoch's, not the best
             best_val_acc = float(ckpt["best_val_acc"])
             self.dropout_generator.set_state(ckpt["dropout_rng"])
+            self._sync_twin()
             self._set_lr(self.scheduler.lr)
             if progress:
                 progress(f"Resumed from {rolling_path} at epoch {start_epoch}")

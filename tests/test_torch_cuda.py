@@ -15,8 +15,9 @@ chunks, frames off a 16-byte boundary, inside a CUDA graph), its launch
 count and phase times, device-crop train steps against plain-crop ones,
 CUDA-graphed train steps
 against eager ones (dropout on), capturable optimizer checkpoints resuming
-exactly and loading into a host-batching trainer and back, and ``remat``
-refused under graphs; the log-mel operator ``mlt::log_mel`` launching the
+exactly and loading into a host-batching trainer and back, graphed
+``remat`` steps against eager remat and plain ones and graphed mixup steps
+against eager ones; the log-mel operator ``mlt::log_mel`` launching the
 kernel, an exported (``torch.export``) wave model launching it, and
 ``serving.load_test`` with the device crop launching the crop kernel once a
 request; a world-1 NCCL data-parallel step against the step without a
@@ -760,11 +761,47 @@ def test_capturable_checkpoints_resume_exactly_and_load_either_way(cuda_device, 
     assert all(s["step"].is_cuda for s in again.optimizer.state.values()) and again.step == 20
 
 
+def _resident_runs(tmp_path, device, runs, **cfg):
+    """``{name: (history rows, trainer)}`` of device-resident fits of
+    ``_mlp_trainer`` (dropout on) with each run's own settings on top of
+    ``cfg``."""
+    train, val = _mlp_data(44, 0), _mlp_data(40, 1)  # 6 and 5 batches: a group of 4 and a tail
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    out = {}
+    for name, extra in runs.items():
+        t = _mlp_trainer(tmp_path, name, device, device_resident=True, **cfg, **extra)
+        out[name] = ([[h[k] for k in keys] for h in t.fit(train, val, progress=None)["history"]], t)
+    return out
+
+
+def _same_runs(a, b):
+    (ha, ta), (hb, tb) = a, b
+    assert ha == hb and ta.step == tb.step
+    sa, sb = ta.model.state_dict(), tb.model.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert ta.dropout_generator.get_state().equal(tb.dropout_generator.get_state())
+
+
 @pytest.mark.cuda
-def test_remat_is_refused_under_graphs(cuda_device, tmp_path):
-    t = _mlp_trainer(tmp_path, "remat", cuda_device, remat=True, device_resident=True, steps_per_dispatch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.fit(_mlp_data(16, 0), _mlp_data(8, 1), progress=None)
+def test_graphed_remat_steps_equal_eager_remat_and_plain_steps(cuda_device, tmp_path):
+    runs = _resident_runs(tmp_path, cuda_device, {
+        "plain": {"steps_per_dispatch": 1}, "remat": {"steps_per_dispatch": 1, "remat": True},
+        "graphed": {"steps_per_dispatch": 4, "remat": True}})
+    assert sorted(kind for kind, _ in runs["graphed"][1]._graphs) == ["eval", "train"]
+    _same_runs(runs["remat"], runs["plain"])
+    _same_runs(runs["graphed"], runs["remat"])
+    t = runs["graphed"][1]  # the twin that the recompute draws from ends where the dropout generator does
+    assert t._twin_generator.get_state().equal(t.dropout_generator.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_graphed_mixup_steps_equal_eager_ones(cuda_device, tmp_path, remat):
+    runs = _resident_runs(tmp_path, cuda_device, {"eager": {"steps_per_dispatch": 1},
+                                                  "graphed": {"steps_per_dispatch": 4}},
+                          mixup_alpha=0.4, remat=remat)
+    assert sorted(kind for kind, _ in runs["graphed"][1]._graphs) == ["eval", "train"]
+    _same_runs(runs["graphed"], runs["eager"])
 
 
 @pytest.mark.cuda

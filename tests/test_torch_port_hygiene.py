@@ -74,6 +74,12 @@ def test_plotting_is_imported_only_inside_functions():
         assert not {"matplotlib", "pandas"} & {n.split(".")[0] for n in _imports(path, top_level_only=True)}, path
 
 
+def test_port_never_imports_pandas():
+    # the card machine has no pandas: the plots read the CSV logs with csv
+    for path in _port_files():
+        assert "pandas" not in {n.split(".")[0] for n in _imports(path)}, path
+
+
 def test_opencv_is_imported_only_inside_functions():
     # the lip extraction and the .mp4 writer need cv2; nothing else may
     # depend on it being installed

@@ -1,7 +1,8 @@
 """The port trainer's remaining knobs on the CPU: ``device_resident`` and
 ``steps_per_dispatch`` (exactly equal to per-step host batching, with the
 JAX trainer's two fallback warnings), ``remat`` (equal to the plain step
-with dropout and BatchNorm on), ``mixup_alpha`` (the mix at a fixed λ and
+with dropout and BatchNorm on, with mixup too, stepwise and in groups of
+4), ``mixup_alpha`` (the mix at a fixed λ and
 permutation against the JAX package's ``mixup``; only full batches mix),
 ``handle_preemption`` (a preemption mid-epoch 2 with dropout on resumes to
 the uninterrupted run's parameters exactly; SIGTERM and the handlers'
@@ -122,6 +123,27 @@ def test_remat_equals_plain_with_dropout_on(tmp_path):
     for k in plain:  # parameters and the BatchNorm statistics (moved once per step)
         np.testing.assert_allclose(remat[k].numpy(), plain[k].numpy(), rtol=1e-6, atol=1e-7, err_msg=k)
     assert trainers[True].dropout_generator.get_state().equal(trainers[False].dropout_generator.get_state())
+
+
+@pytest.mark.parametrize("extra", [{}, {"device_resident": True, "steps_per_dispatch": 4}])
+def test_remat_with_mixup_equals_plain_mixup_and_keeps_its_twin_in_step(tmp_path, extra):
+    # mixup draws from the dropout generator before the forward: the twin
+    # that the recompute draws from takes the same draw, or it would stand
+    # one draw behind and the recompute would draw other masks
+    train, val = _dataset(44), _dataset(12, seed=1)
+    runs = {}
+    for remat in (False, True):
+        t = _trainer(tmp_path, f"remat{remat}", dropout=0.4, mixup_alpha=0.4, remat=remat, **extra)
+        runs[remat] = (t.fit(train, val, progress=None), t)
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    np.testing.assert_allclose([[h[k] for k in keys] for h in runs[True][0]["history"]],
+                               [[h[k] for k in keys] for h in runs[False][0]["history"]], rtol=1e-6, atol=0)
+    plain, remat = _params(runs[False][1]), _params(runs[True][1])
+    for k in plain:
+        np.testing.assert_allclose(remat[k].numpy(), plain[k].numpy(), rtol=1e-6, atol=1e-7, err_msg=k)
+    t = runs[True][1]
+    assert t.dropout_generator.get_state().equal(runs[False][1].dropout_generator.get_state())
+    assert t._twin_generator.get_state().equal(t.dropout_generator.get_state())
 
 
 # --- mixup -----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Ranks of the PyTorch port's multi-process tests (tests/test_torch_ddp.py,
 test_torch_tensor_parallel.py, test_torch_pipeline_parallel.py,
-test_torch_checkpoint_backends.py).
+test_torch_checkpoint_backends.py, test_torch_mixup_ranks.py).
 
 ``run_ranks(case, world, workdir, inputs)`` starts ``world`` processes of
 this file, each ``python tests/torch_dist_worker.py CASE WORKDIR`` with
@@ -418,6 +418,70 @@ def case_ckpt(rank: int, world: int, workdir: str, inputs: Dict[str, Any]) -> Di
     ds = ids_dataset(inputs["ids"], inputs["labels"])
     out["tp"] = {"history": history(tp.fit(ds, ds, progress=None)), "params": tp._export_state()["params"],
                  "query_shape": tuple(tp.model.layer0.attention.query.weight.shape)}
+    return out
+
+
+def case_mixup(rank: int, world: int, workdir: str, inputs: Dict[str, Any]) -> Dict[str, Any]:
+    """Mixup over the data-parallel ranks (``training.mixup_alpha`` 0.4, an
+    MLP with BatchNorm and dropout): 3 steps on the unshuffled batches of 48
+    rows at batch 16 at lr 0 and at lr 1e-2, each step's mix (this rank's
+    mixed inputs and soft labels), the bytes of the last exchange, and the
+    same steps with remat; a 3-epoch fit (its last batch padded) and the
+    dropout generator after it; one step with the last global row at weight
+    0 against the step without mixup (dropout off); and one step at the
+    fixed λ and permutation of ``inputs``."""
+    from multimodal_lipread_torch.nn.common import MLP
+    from multimodal_lipread_torch.train import trainer as trainer_module
+    from multimodal_lipread_torch.train.trainer import Trainer
+
+    def make(tag, dropout=0.3, **kw):
+        cfg = trainer_config(workdir, f"{tag}{rank}", **{"mixup_alpha": 0.4, **kw})
+        t = Trainer(MLP(16, (32,), NUM_CLASSES, dropout_rate=dropout, use_batchnorm=True), cfg, device="cpu")
+        t.init_state()
+        return t
+
+    mixes: List[Any] = []
+    mix, draw = trainer_module.mixup, trainer_module.draw_mixup
+
+    def recording_mix(*args, **kwargs):
+        out = mix(*args, **kwargs)
+        mixes.append((out[0][0].detach().clone(), out[1].detach().clone()))
+        return out
+
+    out: Dict[str, Any] = {}
+    trainer_module.mixup = recording_mix
+    try:
+        for key, kw in (("lr0", {"learning_rate": 0.0}), ("lr", {}), ("remat_lr", {"remat": True})):
+            del mixes[:]
+            t = make(key, **kw)
+            out[key] = one_step_records(t, mlp_data(48, 0))
+            out[key]["mixes"] = list(mixes)
+            out[key]["params"] = {n: p.detach().clone() for n, p in t.model.named_parameters()}
+            out[key]["exchange_bytes"] = t.exchange_bytes
+        t = make("fit")
+        out["fit"] = history(t.fit(mlp_data(40, 0), mlp_data(24, 1), None, progress=None))
+        out["generator"] = t.dropout_generator.get_state()
+
+        rows = 16 // world
+        x = torch.from_numpy(mlp_data(16, 0).inputs[0][rank * rows:(rank + 1) * rows])
+        labels = torch.from_numpy(mlp_data(16, 0).labels[rank * rows:(rank + 1) * rows]).long()
+        weights = torch.ones(rows)
+        if rank == world - 1:
+            weights[-1] = 0.0
+        padded = {}
+        for tag, alpha in (("off", 0.0), ("on", 0.4)):
+            t = make(f"pad_{tag}", dropout=0.0, mixup_alpha=alpha)
+            stats = t.train_step((x,), labels, weights)
+            padded[tag] = (stats, {n: p.detach().clone() for n, p in t.model.named_parameters()})
+        out["padded"] = padded
+
+        lam, perm = torch.tensor(inputs["lam"]), torch.as_tensor(inputs["perm"]).long()
+        trainer_module.draw_mixup = lambda *args, **kwargs: (lam, perm)
+        del mixes[:]
+        make("fixed", dropout=0.0).train_step((x,), labels, torch.ones(rows))
+        out["fixed"] = mixes[0]
+    finally:
+        trainer_module.mixup, trainer_module.draw_mixup = mix, draw
     return out
 
 
