@@ -35,6 +35,7 @@ import numpy as np
 
 from multimodal_lipread_torch.data.audio_io import load_waveform
 from multimodal_lipread_torch.data.glips import ClipEntry
+from multimodal_lipread_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -290,12 +291,15 @@ class NativeStreamingDataset:
 
     def epoch_batches(self, epoch: int, shuffle: bool, batch_size: int):
         """Yield ``(inputs, labels)`` numpy batches of one epoch, the last
-        one short where the shard does not fill it."""
+        one short where the shard does not fill it. Each wait on the ring is
+        the span ``loader.native_next`` (``utils/trace.py``; the last one
+        finds the end of the epoch)."""
         order = self.epoch_order(epoch, shuffle).astype(np.int64)
         self._prefetcher.start_epoch(order)
         consumed = 0
         while True:
-            batch = self._prefetcher.next_batch(batch_size)
+            with trace.span("loader.native_next"):
+                batch = self._prefetcher.next_batch(batch_size)
             if batch is None:
                 break
             err = self._prefetcher.first_error

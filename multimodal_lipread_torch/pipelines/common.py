@@ -34,6 +34,7 @@ from multimodal_lipread_torch.data.glips import AUDIO_EXTS, SPLITS, GlipsIndex, 
 from multimodal_lipread_torch.data.grain_loader import NativeStreamingDataset, StreamingDataset
 from multimodal_lipread_torch.ops.logmel_cuda import log_mel
 from multimodal_lipread_torch.train.trainer import ArrayDataset
+from multimodal_lipread_torch.utils import trace
 
 MEL_BINS = 80
 LIP_SHAPE = (29, 44, 44, 3)
@@ -64,24 +65,26 @@ def decode_waveforms(paths: Sequence[str]) -> np.ndarray:
     WAV files go through the threaded native decoder in one pass
     (``data/native_io.py``, which raises if it cannot be built); a file it
     does not take (not PCM16 at 16 kHz) and any other format go to the
-    Python decoder, per file.
+    Python decoder, per file. The span ``serve.decode``
+    (``utils/trace.py``).
     """
-    out = np.zeros((len(paths), TARGET_SAMPLES), np.float32)
-    wav = [i for i, p in enumerate(paths) if p.lower().endswith(".wav")]
-    python = [i for i, p in enumerate(paths) if not p.lower().endswith(".wav")]
-    if wav:
-        from multimodal_lipread_torch.data.native_io import load_wav_batch
+    with trace.span("serve.decode", clips=len(paths)):
+        out = np.zeros((len(paths), TARGET_SAMPLES), np.float32)
+        wav = [i for i, p in enumerate(paths) if p.lower().endswith(".wav")]
+        python = [i for i, p in enumerate(paths) if not p.lower().endswith(".wav")]
+        if wav:
+            from multimodal_lipread_torch.data.native_io import load_wav_batch
 
-        waves, failed = load_wav_batch([paths[i] for i in wav])
-        out[wav] = waves
-        if failed >= 0:
-            # The decoder names only the first file it refused and leaves every
-            # refused file's row zero. Decode the zero rows in Python: a silent
-            # PCM16 file among them decodes to the same zeros there.
-            python += [i for i, row in zip(wav, waves) if not row.any()]
-    for i in python:
-        out[i] = load_waveform(paths[i])
-    return out
+            waves, failed = load_wav_batch([paths[i] for i in wav])
+            out[wav] = waves
+            if failed >= 0:
+                # The decoder names only the first file it refused and leaves every
+                # refused file's row zero. Decode the zero rows in Python: a silent
+                # PCM16 file among them decodes to the same zeros there.
+                python += [i for i, row in zip(wav, waves) if not row.any()]
+        for i in python:
+            out[i] = load_waveform(paths[i])
+        return out
 
 
 def load_audio_datasets(

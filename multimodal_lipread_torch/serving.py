@@ -79,6 +79,7 @@ import torch
 from torch import nn
 
 from multimodal_lipread_torch.train.checkpoint import SERVING_KEYS, is_orbax_path, load_checkpoint_orbax
+from multimodal_lipread_torch.utils import trace
 from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
 
 
@@ -192,31 +193,45 @@ class Predictor:
 
     def _forward(self, chunk: Tuple[np.ndarray, ...]) -> List[torch.Tensor]:
         """Each replica on its equal share of a fixed batch, all launched
-        before any result is read."""
+        before any result is read: the spans ``serve.h2d`` (the copies in)
+        and ``serve.forward`` (the preproc and the model's launches)."""
         share = self.batch_size // len(self.replicas)
         outs = []
         for i, (model, device) in enumerate(self.replicas):
-            xs = tuple(torch.from_numpy(np.ascontiguousarray(a[i * share : (i + 1) * share])).to(device)
-                       for a in chunk)
-            if self.device_preproc is not None:  # zero boxes pad to blank frames
-                xs = tuple(self.device_preproc(*xs))
-            outs.append(model(*(_cast(x) for x in xs)))
+            with trace.span("serve.h2d"):
+                xs = tuple(torch.from_numpy(np.ascontiguousarray(a[i * share : (i + 1) * share])).to(device)
+                           for a in chunk)
+            with trace.span("serve.forward"):
+                if self.device_preproc is not None:  # zero boxes pad to blank frames
+                    xs = tuple(self.device_preproc(*xs))
+                outs.append(model(*(_cast(x) for x in xs)))
         return outs
 
     def predict_logits(self, *inputs: np.ndarray) -> np.ndarray:
-        """Any-N inputs → (N, num_classes) float32 logits via fixed-size batches."""
+        """Any-N inputs → (N, num_classes) float32 logits via fixed-size
+        batches. A call is the span ``serve.request`` (a request of its own,
+        ``utils/trace.py``), holding ``serve.pad`` for a short batch, the
+        spans of :meth:`_forward` and ``serve.d2h``, the copy back that waits
+        for the card; ``serve.rows`` and ``serve.rows_padded`` count the real
+        and the padding rows sent to the card."""
         n = inputs[0].shape[0]
         out: List[np.ndarray] = []
-        with torch.inference_mode(), model_precision(compute_dtype(self.model)):
+        with trace.span("serve.request", new_request=True, rows=n), torch.inference_mode(), \
+                model_precision(compute_dtype(self.model)):
             for start in range(0, n, self.batch_size):
                 chunk = tuple(a[start : start + self.batch_size] for a in inputs)
                 k = chunk[0].shape[0]
+                trace.count("serve.rows", k)
                 if k < self.batch_size:  # pad to the fixed batch
-                    chunk = tuple(
-                        np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1))
-                        for a in chunk
-                    )
-                logits = torch.cat([o.float().cpu() for o in self._forward(chunk)])
+                    with trace.span("serve.pad"):
+                        chunk = tuple(
+                            np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1))
+                            for a in chunk
+                        )
+                    trace.count("serve.rows_padded", self.batch_size - k)
+                outs = self._forward(chunk)
+                with trace.span("serve.d2h"):
+                    logits = torch.cat([o.float().cpu() for o in outs])
                 out.append(logits[:k].numpy())
         return np.concatenate(out, axis=0) if out else np.zeros((0, 0), np.float32)
 

@@ -71,8 +71,12 @@ card and on the CPU, take the same code. ``mixup_alpha`` mixes full
 batches after the cast (``data/augment.py``), with soft-label cross
 entropy; with several data-parallel ranks the batch is the global one (one
 λ and one permutation of every rank's rows). ``profile_dir`` writes a
-``torch.profiler`` Chrome trace of the first epoch. ``handle_preemption``
-turns SIGTERM/SIGINT into ``request_preemption``: the step in flight
+``torch.profiler`` Chrome trace of the first epoch, with the spans of
+``utils/trace.py``: ``trainer.step`` and its ``trainer.forward``,
+``trainer.backward`` and ``trainer.optimizer``, ``trainer.group`` around a
+graphed dispatch, and ``loader.wait`` around each wait for a host batch
+(with the counters ``loader.batches`` and ``loader.batches_waited``).
+``handle_preemption`` turns SIGTERM/SIGINT into ``request_preemption``: the step in flight
 finishes, the rolling checkpoint is written from a host snapshot of the
 epoch's start (the dropout generator's state included) labelled
 ``epoch - 1``, and ``fit`` returns ``preempted=True``; ``--resume`` replays
@@ -152,6 +156,7 @@ from multimodal_lipread_torch.train.checkpoint import (
     wait_for_async_saves,
 )
 from multimodal_lipread_torch.train.schedule import ReduceLROnPlateau
+from multimodal_lipread_torch.utils import trace
 from multimodal_lipread_torch.utils.metrics_log import MetricLogger
 from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
 
@@ -266,10 +271,25 @@ def _host_prefetch_iter(it: Iterator, depth: int) -> Iterator:
     """Drain ``it`` from a daemon thread, ``depth`` items ahead, in order.
 
     Producer exceptions re-raise in the consumer; a consumer that stops
-    early stops the producer."""
+    early stops the producer. Each wait for an item is the span
+    ``loader.wait`` (the last one finds the end); ``loader.batches`` counts
+    the items and ``loader.batches_waited`` those the queue did not hold
+    when asked for (every item where ``depth`` is 0: it is made inline)."""
     if depth <= 0:
-        yield from it
-        return
+        end = object()
+        try:
+            while True:
+                with trace.span("loader.wait"):
+                    item = next(it, end)
+                if item is end:
+                    return
+                trace.count("loader.batches")
+                trace.count("loader.batches_waited")
+                yield item
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
     import queue as queue_mod
     import threading
 
@@ -300,11 +320,16 @@ def _host_prefetch_iter(it: Iterator, depth: int) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            waited = q.empty()
+            with trace.span("loader.wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
                 raise item
+            trace.count("loader.batches")
+            if waited:
+                trace.count("loader.batches_waited")
             yield item
     finally:
         stop.set()
@@ -765,31 +790,38 @@ class Trainer:
                    weights: torch.Tensor) -> torch.Tensor:
         """One optimizer step on this rank's slice of a batch. Returns the
         device tensor (Σ loss·w, correct, Σ weights, Σ w) of the slice;
-        nothing is read back."""
-        self.model.train()
-        if self._pp:
-            return self._pp_train_step(inputs, labels, weights)
-        with model_precision(self.compute_dtype):
-            xs = self._prepare_inputs(inputs)
-            w = self._example_weights(labels, weights)
-            wsum = w.sum()
-            # one all-reduce: Σw, and the weights' count that says whether
-            # the global batch is full (mixup)
-            global_wsum, global_count = self._global_sums(wsum, weights.sum())
-            target = labels
-            if self.config.mixup_alpha > 0:
-                xs, target = self._mixup(xs, labels, global_count)
-            logits = self._train_forward(xs).float()
-            ce_w = (F.cross_entropy(logits, target, reduction="none") * w).sum()
-            self.optimizer.zero_grad(set_to_none=True)
-            (ce_w / global_wsum.clamp_min(1e-9)).backward()
-            if self._rules and self._data_group is not None:
-                pmesh.all_reduce_flat([p.grad for p in self._grads()], self._data_group)
-        self.optimizer.step()
-        self.step += 1
-        with torch.no_grad():
-            correct = ((logits.argmax(-1) == labels).float() * weights).sum()
-            return torch.stack([ce_w.detach(), correct, weights.sum(), wsum])
+        nothing is read back. The span ``trainer.step`` holds
+        ``trainer.forward`` (inputs through the weighted loss),
+        ``trainer.backward`` (and the flat all-reduce under partition rules)
+        and ``trainer.optimizer``."""
+        with trace.span("trainer.step"):
+            self.model.train()
+            if self._pp:
+                return self._pp_train_step(inputs, labels, weights)
+            with model_precision(self.compute_dtype):
+                with trace.span("trainer.forward"):
+                    xs = self._prepare_inputs(inputs)
+                    w = self._example_weights(labels, weights)
+                    wsum = w.sum()
+                    # one all-reduce: Σw, and the weights' count that says
+                    # whether the global batch is full (mixup)
+                    global_wsum, global_count = self._global_sums(wsum, weights.sum())
+                    target = labels
+                    if self.config.mixup_alpha > 0:
+                        xs, target = self._mixup(xs, labels, global_count)
+                    logits = self._train_forward(xs).float()
+                    ce_w = (F.cross_entropy(logits, target, reduction="none") * w).sum()
+                with trace.span("trainer.backward"):
+                    self.optimizer.zero_grad(set_to_none=True)
+                    (ce_w / global_wsum.clamp_min(1e-9)).backward()
+                    if self._rules and self._data_group is not None:
+                        pmesh.all_reduce_flat([p.grad for p in self._grads()], self._data_group)
+            with trace.span("trainer.optimizer"):
+                self.optimizer.step()
+            self.step += 1
+            with torch.no_grad():
+                correct = ((logits.argmax(-1) == labels).float() * weights).sum()
+                return torch.stack([ce_w.detach(), correct, weights.sum(), wsum])
 
     def _grads(self) -> List[nn.Parameter]:
         """Adam's parameters, a zero gradient given to any that got none."""
@@ -811,7 +843,8 @@ class Trainer:
             stats = gpipe_train_step(self.model, ids, labels, weights, w, self._global_sums(w.sum())[0], self.mesh,
                                      self.model.num_microbatches)
             reduce_grads(self.model, self.mesh)
-        self.optimizer.step()
+        with trace.span("trainer.optimizer"):
+            self.optimizer.step()
         self.step += 1
         return stats
 
@@ -956,23 +989,25 @@ class Trainer:
 
     def _run_group(self, kind: str, ds: ArrayDataset, step: Callable, idxs: np.ndarray,
                    ws: np.ndarray) -> torch.Tensor:
-        """K steps of ``step`` on one group: eagerly on the CPU; on the card
-        through the dataset's graph, captured after running the first group
-        for real. Returns the group's (K, 4) stats."""
-        if self.device.type != "cuda" or (kind == "train" and self._ddp_warming()):
-            return torch.stack([step(*self._to_device(i, w)) for i, w in zip(idxs, ws)])
-        key = (kind, id(ds))
-        graph = self._graphs.get(key)
-        if graph is None:
-            generators = [g for g in (self.dropout_generator, self._twin_generator) if g is not None]
-            steps_before = self.step
-            graph = _StepGroupGraph(step, idxs, ws, self.device, generators if kind == "train" else ())
-            self.step = steps_before + (len(idxs) if kind == "train" else 0)  # capture ran no step
-            self._graphs[key] = graph
-            return graph.first
-        if kind == "train":
-            self.step += len(idxs)
-        return graph.replay(idxs, ws)
+        """K steps of ``step`` on one group, in the span ``trainer.group``:
+        eagerly on the CPU; on the card through the dataset's graph, captured
+        after running the first group for real (a replay runs no span).
+        Returns the group's (K, 4) stats."""
+        with trace.span("trainer.group", kind=kind, steps=len(idxs)):
+            if self.device.type != "cuda" or (kind == "train" and self._ddp_warming()):
+                return torch.stack([step(*self._to_device(i, w)) for i, w in zip(idxs, ws)])
+            key = (kind, id(ds))
+            graph = self._graphs.get(key)
+            if graph is None:
+                generators = [g for g in (self.dropout_generator, self._twin_generator) if g is not None]
+                steps_before = self.step
+                graph = _StepGroupGraph(step, idxs, ws, self.device, generators if kind == "train" else ())
+                self.step = steps_before + (len(idxs) if kind == "train" else 0)  # capture ran no step
+                self._graphs[key] = graph
+                return graph.first
+            if kind == "train":
+                self.step += len(idxs)
+            return graph.replay(idxs, ws)
 
     def _ddp_warming(self) -> bool:
         """Whether the train steps go through DDP and it has taken fewer
