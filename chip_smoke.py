@@ -219,8 +219,9 @@ exit:
    of the plain version's crops in the same order (1e-5, under
    ``cudnn.deterministic``); a per-step breakdown (host batch, H2D of the
    full frames, crop kernel, step, idle); 4 requests of 16 full-frame
-   clips through ``Predictor(device_preproc=device_crop)`` against the
-   plain crops, to 1e-3;
+   clips through ``Predictor(device_preproc=device_crop)`` (eager, the
+   capture, two replays) against the plain crops, to 1e-3, the crop kernel
+   running on the card in each;
 23. mp4 (after 22): ``pipelines.video.main`` on a synthetic ``.mp4`` tree
    (OpenCV ``mp4v``), 1 epoch with ``dataset.device_crop`` and 1 with
    ``dataset.host_crop_streaming``, and the host's decode + detect time
@@ -249,7 +250,10 @@ exit:
    request, 25 requests a thread, the log-mel kernel in each), and
    [video-train]'s resnet_trans behind ``Predictor(device_preproc=
    device_crop)`` (16 full-frame clips of 29 x 256 x 256 x 3 a request, 10
-   a thread, the crop kernel in each): p50, p90, p99, max and clips/s;
+   a thread, the crop kernel in each), under the profiler: p50, p90, p99,
+   max and clips/s, and each kernel's runs on the card, one a request and
+   the warm-up (the first timed request captures the predictor's graph;
+   ``served_kernel_runs``);
 27. export: ``serving.export_pipeline`` on [stream-train]'s checkpoint
    (``torch.export`` over raw waveforms), loaded again and run on the card:
    the graph holds ``mlt.log_mel``, the run launches the kernel, and the
@@ -333,8 +337,12 @@ Every phase prints its wall time. The video and cue phases, [cv-*] and
 [zoo] launch no hand-written kernel. The request breakdowns load lips
 through ``serving.load_lips``. The line
 before the last is ``{"kernels": [...]}``, one entry per kernel, with the
-paths that launch it (the crop kernel's ``max_abs_err`` in uint8 LSB); the
-last line is ``{"ok": true, "device": {...}}``.
+paths that launch it (the crop kernel's ``max_abs_err`` in uint8 LSB; in
+[crop-train] and [load-test] the launches counted are the kernel's runs on
+the card, the replays of a ``Predictor``'s CUDA graphs among them, and in
+[serve] and [dp-serve] its runs in the profiler's device trace); the last
+line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -526,6 +534,41 @@ def timed(phase: str, fn, *args):
     out = fn(*args)
     log(phase, f"phase wall time {time.perf_counter() - t0:.2f} s")
     return out
+
+
+def device_runs(fn, kernel: str) -> tuple:
+    """``fn()`` under a CUDA-only ``torch.profiler`` session, and how many
+    times kernels whose names hold ``kernel`` ran on the card: the
+    replays of a ``Predictor``'s CUDA graphs among them, which the ops'
+    host-side ``launch_count`` does not see."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name())
+
+
+def served_kernel_runs(fn, module, kernel: str, predictor) -> tuple:
+    """``fn()``, in which ``predictor`` alone serves, under
+    :func:`device_runs`; how many times ``module``'s kernel ran on the
+    card: its launches from the host (``module.launch_count``) less those
+    made under the predictor's captures, which run only in the replays,
+    plus one a replay of the predictor's CUDA graphs (the counter
+    ``serve.replays`` of the traced session, ``utils/trace.py``); and the
+    kernel's runs in the profiler's device trace. In this long process the
+    trace showed one kernel fewer a session, in [crop-train] and
+    [load-test], than ran (the served logits were exact)."""
+    from multimodal_lipread_torch.utils import trace
+
+    def tried() -> int:  # each signature a replica served graphed: one capture
+        return sum(len(r.fixed) for r in predictor.replicas)
+
+    launches, captures = module.launch_count, tried()
+    out, traced = device_runs(fn, kernel)
+    replays = trace.last_session()["counters"].get("serve.replays", 0)
+    return out, module.launch_count - launches - (tried() - captures) + replays, traced
 
 
 def cuda_ms(fn, warmup: int = TIMING_WARMUP, iters: int = TIMING_ITERS) -> float:
@@ -733,7 +776,6 @@ def phase_serve(seed: int, device_info: dict) -> int:
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.config import Config
     from multimodal_lipread_torch.models.frontend import WaveToLogMel
-    from multimodal_lipread_torch.ops import logmel_cuda
     from multimodal_lipread_torch.ops.logmel import log_mel_reference
     from multimodal_lipread_torch.pipelines.common import decode_waveforms
     from multimodal_lipread_torch.train.checkpoint import module_state, save_checkpoint
@@ -767,35 +809,36 @@ def phase_serve(seed: int, device_info: dict) -> int:
         serving.predict_audio_clips(cfg_stream, ckpt_stream, requests[0], SERVE_BATCH, device=DEVICE)  # warm-up
         torch.cuda.synchronize()
 
-        logmel_cuda.launch_count = 0
-        stream_logits = []
-        for i, req in enumerate(requests):
-            t0 = time.perf_counter()
-            res = serving.predict_audio_clips(cfg_stream, ckpt_stream, req, SERVE_BATCH, device=DEVICE)
-            dt = time.perf_counter() - t0
-            stream_logits += [r["logits"] for r in res]
-            log("serve", f"predict_audio_clips (streaming) request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
-                         f"incl. model build + checkpoint load + WAV decode | {device_info['smi']}")
-        feat = serving.predict_audio_clips(cfg_feat, ckpt_feat, clips, SERVE_BATCH, device=DEVICE)
-        predictor = serving.Predictor.from_checkpoint(
-            WaveToLogMel(serving.build_audio_model(cfg_feat), 117), ckpt_stream, SERVE_BATCH, device=DEVICE)
-        resident, total_s = [], 0.0
-        for i, req in enumerate(requests):
-            t0 = time.perf_counter()
-            logits = predictor.predict_logits(decode_waveforms(req))
-            dt = time.perf_counter() - t0
-            total_s += dt
-            resident.append(logits)
-            log("serve", f"resident Predictor request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
-                         f"(WAV decode + H2D + log-mel kernel + vgg_lstm + D2H), "
-                         f"{len(req) / dt:.1f} clips/s | {device_info['smi']}")
-        torch.cuda.synchronize()
-        launches = logmel_cuda.launch_count
+        def serve():
+            stream_logits = []
+            for i, req in enumerate(requests):
+                t0 = time.perf_counter()
+                res = serving.predict_audio_clips(cfg_stream, ckpt_stream, req, SERVE_BATCH, device=DEVICE)
+                dt = time.perf_counter() - t0
+                stream_logits += [r["logits"] for r in res]
+                log("serve", f"predict_audio_clips (streaming) request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
+                             f"incl. model build + checkpoint load + WAV decode | {device_info['smi']}")
+            feat = serving.predict_audio_clips(cfg_feat, ckpt_feat, clips, SERVE_BATCH, device=DEVICE)
+            predictor = serving.Predictor.from_checkpoint(
+                WaveToLogMel(serving.build_audio_model(cfg_feat), 117), ckpt_stream, SERVE_BATCH, device=DEVICE)
+            resident, total_s = [], 0.0
+            for i, req in enumerate(requests):
+                t0 = time.perf_counter()
+                logits = predictor.predict_logits(decode_waveforms(req))
+                dt = time.perf_counter() - t0
+                total_s += dt
+                resident.append(logits)
+                log("serve", f"resident Predictor request {i}: {len(req)} clips, {dt * 1e3:.2f} ms "
+                             f"(WAV decode + H2D + log-mel kernel + vgg_lstm + D2H), "
+                             f"{len(req) / dt:.1f} clips/s | {device_info['smi']}")
+            return stream_logits, feat, predictor, resident, total_s
+
+        (stream_logits, feat, predictor, resident, total_s), launches = device_runs(serve, "logmel_kernel")
         log("serve", f"resident Predictor: {len(clips)} clips in {total_s * 1e3:.2f} ms, "
                      f"{len(clips) / total_s:.1f} clips/s | {device_info['smi']}")
-        log("serve", f"log-mel kernel launches while serving: {launches}")
-        if launches < 1:
-            raise SystemExit("serving never launched the log-mel kernel")
+        log("serve", f"log-mel kernel runs on the card while serving, under the profiler: {launches}")
+        if launches < 2 * len(requests):  # each streaming and each resident request
+            raise SystemExit("serving did not run the log-mel kernel in every request")
         net = predictor.model.model
         stages = request_breakdown(net, requests[0])
         log("serve", f"one request of {len(requests[0])} clips, mean of {BREAKDOWN_ITERS}: " + ", ".join(
@@ -2808,28 +2851,34 @@ def phase_crop_train(seed: int, device_info: dict, tmp: str) -> dict:
     # serving full frames through the predictor's device crop
     ckpt = os.path.join(tmp, "crop", "resnet_trans_crop.pt")
     save_checkpoint(ckpt, cropping.checkpoint_tree(CROP_EPOCHS, 0.0, 0.0))
-    crop_resize_cuda.launch_count = 0
     predictor = serving.Predictor.from_checkpoint(get_video_model("resnet_trans", len(WORDS)), ckpt, CROP_REQUEST,
                                                   device=DEVICE, device_preproc=crop_resize_cuda.device_crop)
     reference = serving.Predictor.from_checkpoint(get_video_model("resnet_trans", len(WORDS)), ckpt, CROP_REQUEST,
                                                   device=DEVICE)
-    served, refs, total_s = [], [], 0.0
-    for r in range(CROP_REQUESTS):
-        sel = slice((r * CROP_REQUEST) % len(source), (r * CROP_REQUEST) % len(source) + CROP_REQUEST)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        served.append(predictor.predict_logits(source.frames[sel], source.boxes[sel]))
-        total_s += time.perf_counter() - t0
-        refs.append(reference.predict_logits(lips[sel]))
-    serve_launches = crop_resize_cuda.launch_count
+
+    sels = [slice((r * CROP_REQUEST) % len(source), (r * CROP_REQUEST) % len(source) + CROP_REQUEST)
+            for r in range(CROP_REQUESTS)]
+
+    def serve():  # the first request runs eagerly, the second captures, the others replay
+        served, total_s = [], 0.0
+        for sel in sels:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served.append(predictor.predict_logits(source.frames[sel], source.boxes[sel]))
+            total_s += time.perf_counter() - t0
+        return served, total_s
+
+    (served, total_s), serve_launches, traced = served_kernel_runs(serve, crop_resize_cuda, "crop_resize", predictor)
+    refs = [reference.predict_logits(lips[sel]) for sel in sels]
     log("crop-train", f"Predictor(device_preproc=device_crop): {CROP_REQUESTS} requests of {CROP_REQUEST} full-frame "
-                      f"clips in {total_s * 1e3:.2f} ms ({total_s / CROP_REQUESTS * 1e3:.3f} ms a request, "
-                      f"{CROP_REQUESTS * CROP_REQUEST / total_s:.1f} clips/s; frames H2D, crop kernel, forward, D2H), "
-                      f"crop kernel launches {serve_launches} | {smi}")
-    if serve_launches < CROP_REQUESTS:
-        raise SystemExit("[crop-train] serving did not launch the crop kernel")
+                      f"clips in {total_s * 1e3:.2f} ms under the profiler ({total_s / CROP_REQUESTS * 1e3:.3f} ms a "
+                      f"request, {CROP_REQUESTS * CROP_REQUEST / total_s:.1f} clips/s; frames H2D, crop kernel, "
+                      f"forward, D2H), crop kernel runs on the card {serve_launches} (in the device trace "
+                      f"{traced}) | {smi}")
     check_logits("crop-train", "device-crop Predictor", np.concatenate(served), np.concatenate(refs),
                  "plain-version crops on the card")
+    if serve_launches < CROP_REQUESTS:
+        raise SystemExit(f"[crop-train] the crop kernel ran {serve_launches} times for {CROP_REQUESTS} requests")
     return {"launches": launches + serve_launches}
 
 
@@ -3108,7 +3157,9 @@ def phase_load_test(seed: int, device_info: dict, stream: dict, video: dict) -> 
     in every request), then [video-train]'s resnet_trans behind
     ``Predictor(device_preproc=device_crop)`` on full-frame requests (B=16
     clips of 29 x 256 x 256 x 3 and their boxes, the crop kernel in every
-    request). Returns the log-mel and the crop kernel's launches."""
+    request, inside the predictor's CUDA graph from the second on). Returns
+    the log-mel and the crop kernel's runs on the card
+    (:func:`served_kernel_runs`), one a request and the warm-up."""
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.data.glips import scan_glips
     from multimodal_lipread_torch.ops import crop_resize_cuda, logmel_cuda
@@ -3120,24 +3171,25 @@ def phase_load_test(seed: int, device_info: dict, stream: dict, video: dict) -> 
         model = serving.build_audio_model(stream["cfg"])
     audio = serving.Predictor.from_checkpoint(model, stream["best"], SERVE_BATCH, device=DEVICE)
     waves = decode_waveforms([e.path for e in scan_glips(stream["root"]).by_split("test")][:SERVE_BATCH])
-    logmel_cuda.launch_count = 0
-    r = serving.load_test(audio, (waves,), LOAD_THREADS, LOAD_AUDIO_REQUESTS)
-    mel_launches = logmel_cuda.launch_count
-    log_load_test("load-test", f"audio vgg_lstm ({len(WORDS)} words) on raw waveforms, log-mel kernel launches "
-                               f"{mel_launches}", r, smi)
+    r, mel_launches, traced = served_kernel_runs(
+        lambda: serving.load_test(audio, (waves,), LOAD_THREADS, LOAD_AUDIO_REQUESTS), logmel_cuda, "logmel_kernel",
+        audio)
+    log_load_test("load-test", f"audio vgg_lstm ({len(WORDS)} words) on raw waveforms under the profiler, log-mel "
+                               f"kernel runs on the card {mel_launches} (in the device trace {traced})", r, smi)
     with torch.device("meta"):
         model = serving.build_model("video", video["cfg"])
     crop = serving.Predictor.from_checkpoint(model, video["best"], CROP_REQUEST, device=DEVICE,
                                              device_preproc=device_crop)
     clips = MemoryClips(CROP_REQUEST, seed)
-    crop_resize_cuda.launch_count = 0
-    r2 = serving.load_test(crop, (clips.frames, clips.boxes), LOAD_THREADS, LOAD_CROP_REQUESTS)
-    crop_launches = crop_resize_cuda.launch_count
-    log_load_test("load-test", f"video resnet_trans on full frames {clips.frames.shape[1:]} with the device crop, crop "
-                               f"kernel launches {crop_launches}", r2, smi)
+    r2, crop_launches, traced = served_kernel_runs(
+        lambda: serving.load_test(crop, (clips.frames, clips.boxes), LOAD_THREADS, LOAD_CROP_REQUESTS),
+        crop_resize_cuda, "crop_resize", crop)
+    log_load_test("load-test", f"video resnet_trans on full frames {clips.frames.shape[1:]} with the device crop under "
+                               f"the profiler, crop kernel runs on the card {crop_launches} (in the device trace "
+                               f"{traced})", r2, smi)
     want = (1 + LOAD_THREADS * LOAD_AUDIO_REQUESTS, 1 + LOAD_THREADS * LOAD_CROP_REQUESTS)
     if (mel_launches, crop_launches) != want or not np.isfinite([r["p99_ms"], r2["p99_ms"]]).all():
-        raise SystemExit(f"[load-test] kernel launches {(mel_launches, crop_launches)}, expected {want} (one a "
+        raise SystemExit(f"[load-test] kernel runs {(mel_launches, crop_launches)}, expected {want} (one a "
                          "request and the warm-up)")
     return mel_launches, crop_launches
 
@@ -3847,7 +3899,6 @@ def phase_dp_serve(seed: int, device_info: dict) -> int:
     from multimodal_lipread_torch import serving
     from multimodal_lipread_torch.config import Config
     from multimodal_lipread_torch.models.frontend import WaveToLogMel
-    from multimodal_lipread_torch.ops import logmel_cuda
     from multimodal_lipread_torch.pipelines.common import decode_waveforms
     from multimodal_lipread_torch.train.checkpoint import module_state, save_checkpoint
 
@@ -3864,21 +3915,19 @@ def phase_dp_serve(seed: int, device_info: dict) -> int:
         ckpt = os.path.join(tmp, "vgg_lstm_stream_best.pt")
         save_checkpoint(ckpt, {"epoch": 0, "val_acc": 0.0, "state": module_state(WaveToLogMel(model, 117))})
         devices = serving.replica_devices(DEVICE)
-        logmel_cuda.launch_count = 0
         t0 = time.perf_counter()
-        served = serving.predict_clips(cfg, ckpt, "audio", [[c] for c in clips], SERVE_BATCH, device=DEVICE,
-                                       data_parallel=True)
-        torch.cuda.synchronize()
+        served, launches = device_runs(lambda: serving.predict_clips(
+            cfg, ckpt, "audio", [[c] for c in clips], SERVE_BATCH, device=DEVICE, data_parallel=True), "logmel_kernel")
         wall = time.perf_counter() - t0
-        launches = logmel_cuda.launch_count
         got = np.asarray([r["logits"] for r in served], np.float32)
         single = serving.Predictor.from_checkpoint(serving.build_audio_model(cfg), ckpt, SERVE_BATCH, device=DEVICE)
         want = single.predict_logits(decode_waveforms(clips))
         err = float(np.abs(got - want).max())
         ok = got.shape == want.shape and err <= DP_SERVE_TOL and launches > 0
         log("dp-serve", f"{len(clips)} clips in batches of {SERVE_BATCH} over {len(devices)} replica(s) {devices} "
-                        f"in {wall:.2f} s (build, load, decode, serve): logits vs one resident Predictor, max abs "
-                        f"err {err:.3e} (tolerance {DP_SERVE_TOL:g}), log-mel launches {launches} "
+                        f"in {wall:.2f} s (build, load, decode, serve; under the profiler): logits vs one resident "
+                        f"Predictor, max abs err {err:.3e} (tolerance {DP_SERVE_TOL:g}), log-mel runs on the card "
+                        f"{launches} "
                         f"{'ok' if ok else 'FAIL'} | {device_info['smi']}")
         if not ok:
             raise SystemExit("[dp-serve] data-parallel serving departs from one replica")

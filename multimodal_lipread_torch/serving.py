@@ -62,16 +62,42 @@ threaded native ``.npy`` loader.
   evenly over them (a batch size the replica count does not divide
   raises); the logits are put back together in order and equal
   single-device serving. ``replica_devices`` lists every local card.
+
+On a card a ``Predictor`` serves each fixed batch of a signature (the
+shapes and dtypes of the inputs) after its first request as one CUDA
+graph replay per replica. The first request runs eagerly, as on the CPU,
+so a predictor built for one call (the ``predict_*`` paths) never
+captures. At the first batch of a later request each replica, with the
+predictor's other batches held back, runs the forward eagerly on a stream
+of its own (so cuDNN's and cuBLAS's workspaces, the LSTM's flat weights
+and the log-mel kernel's scratch of that stream exist) and captures it
+there, thread-locally, under the request's precision: the cast, the
+``device_preproc`` and the model. Later batches copy their rows into
+pinned host tensors (padding rows zeroed in place), and under the
+replica's lock copy them in, replay the graph and copy the logits back
+into a pinned tensor, all on the replica's stream; the wait for the copy
+back comes after the lock is released and every replica has been
+launched. Each replica keeps its stream, its lock and, per signature of
+its share, the device inputs, the graph and its output, in one memory
+pool a replica. A forward that cannot be captured (one that waits for the
+card) stays eager at that signature, with one warning. The spans
+(``utils/trace.py``) of a replayed batch: ``serve.pad`` the zero fill,
+``serve.h2d`` the rows, the wait for the lock and the copy in,
+``serve.forward`` the replay, ``serve.d2h`` the copy back and the wait
+for it; the counter ``serve.replays`` counts the replicas' batches that a
+replay served.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
 import itertools
 import threading
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,12 +179,159 @@ def replica_devices(device: str = "cuda") -> List[str]:
     return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+@dataclasses.dataclass
+class _Fixed:
+    """A card replica's buffers for one signature of its share of a fixed
+    batch: the device inputs that the copies in fill and, once captured,
+    the CUDA graph of the forward on them and its output; ``eager`` once
+    the capture failed."""
+
+    inputs: Tuple[torch.Tensor, ...]
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    out: Optional[torch.Tensor] = None
+    eager: bool = False
+
+
+class _Gate:
+    """Batches in flight together, or one alone: :meth:`alone` waits for the
+    batches in flight to end and holds new ones back."""
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.among_n = 0  # batches in flight
+        self.held = False  # a batch alone
+        self.asking = 0  # batches waiting to run alone
+
+    @contextlib.contextmanager
+    def among(self):
+        with self.cond:
+            self.cond.wait_for(lambda: not self.held and not self.asking)
+            self.among_n += 1
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.among_n -= 1
+                self.cond.notify_all()
+
+    @contextlib.contextmanager
+    def alone(self):
+        with self.cond:
+            self.asking += 1
+            self.cond.wait_for(lambda: not self.held and not self.among_n)
+            self.asking -= 1
+            self.held = True
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.held = False
+                self.cond.notify_all()
+
+
+class _Replica:
+    """One copy of the model on one device, with the predictor's
+    ``preproc``. On a card it serves its share of a graphed batch on a
+    stream of its own (made at its first such batch), one batch at a time
+    under its lock, from a :class:`_Fixed` per signature (the shapes and
+    dtypes of the share); its CUDA graphs share one memory pool."""
+
+    def __init__(self, model: nn.Module, device: torch.device, preproc: Optional[Callable[..., tuple]]):
+        self.model, self.device, self.preproc = model, device, preproc
+        self.stream = None
+        self.lock = threading.Lock()
+        self.fixed: Dict[tuple, _Fixed] = {}
+        self.pool: Optional[tuple] = None
+
+    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+        """Float32 logits of a device batch: the preproc, the cast, the model."""
+        if self.preproc is not None:  # zero boxes pad to blank frames
+            xs = tuple(self.preproc(*xs))
+        return self.model(*(_cast(x) for x in xs)).float()
+
+    def ready(self, key: tuple) -> bool:
+        """Whether a share of signature ``key`` would neither capture nor try to."""
+        fixed = self.fixed.get(key)
+        return fixed is not None and (fixed.graph is not None or fixed.eager)
+
+    def launch(self, hosts: Tuple[torch.Tensor, ...],
+               rows: Tuple[np.ndarray, ...]) -> Tuple[torch.Tensor, torch.cuda.Event]:
+        """Enqueue the share on the card: ``rows`` into the pinned ``hosts``
+        (whose other rows are zero), the copy in, the forward (at the
+        signature's first share here eager, then captured; replayed from
+        then on; eager for good where it could not be captured) and the
+        copy back into a pinned tensor; returns that tensor and the event
+        that marks it written. Spans: ``serve.h2d`` (the rows, the wait for
+        the lock, the copy in), ``serve.forward`` (the replay, or the eager
+        launches and the capture) and ``serve.d2h`` (the copy back's
+        launch)."""
+        with contextlib.ExitStack() as held:
+            with trace.span("serve.h2d"):
+                for h, a in zip(hosts, rows):
+                    h.numpy()[: a.shape[0]] = a
+                held.enter_context(self.lock)
+                if self.stream is None:
+                    self.stream = torch.cuda.Stream(self.device)
+                    self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                held.enter_context(torch.cuda.stream(self.stream))
+                key = tuple((tuple(h.shape), h.dtype) for h in hosts)
+                fixed = self.fixed.get(key)
+                first = fixed is None
+                if first:
+                    fixed = self.fixed[key] = _Fixed(tuple(torch.empty_like(h, device=self.device) for h in hosts))
+                for x, h in zip(fixed.inputs, hosts):
+                    x.copy_(h, non_blocking=True)
+            with trace.span("serve.forward"):
+                if fixed.graph is not None:
+                    fixed.graph.replay()
+                    trace.count("serve.replays")
+                    out = fixed.out
+                else:
+                    out = self.forward(*fixed.inputs)
+                    if first:
+                        self._capture(fixed)
+            with trace.span("serve.d2h"):
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+        return host, done
+
+    def _capture(self, fixed: _Fixed) -> None:
+        """Capture the forward on ``fixed.inputs`` as a CUDA graph on this
+        replica's stream, after an eager forward there has made its lazily
+        built state (cuDNN and cuBLAS workspaces, the LSTM's flat weights,
+        the log-mel kernel's scratch of this stream). The capture is
+        thread-local, so other predictors' threads may use the card
+        meanwhile. A forward that cannot be captured (one that waits for the
+        card) stays eager at this signature, with one warning."""
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
+                out = self.forward(*fixed.inputs)
+        except RuntimeError as e:  # a CUDA error of the capture (torch.AcceleratorError) among them
+            warnings.warn(f"serving on {self.device}: the forward on inputs of shapes "
+                          f"{[tuple(x.shape) for x in fixed.inputs]} runs eagerly, its capture as a CUDA graph "
+                          f"failed: {e!r}", RuntimeWarning)
+            fixed.eager = True
+            return
+        self.pool = self.pool or graph.pool()
+        fixed.graph, fixed.out = graph, out
+
+
 @dataclasses.dataclass
 class Predictor:
     """Fixed-batch classifier around a model in eval mode on ``device``,
     run at its compute dtype's precision (``utils/precision.py``: no TF32
     for a float32 model). With ``devices``, one replica per device (the
-    first takes the model itself) serves an equal share of every batch."""
+    first takes the model itself) serves an equal share of every batch.
+    On a card, from a signature's second request on, each replica replays
+    a CUDA graph of its forward (:class:`_Replica`); a signature's first
+    request, and every request on the CPU, runs the forward eagerly."""
 
     model: nn.Module
     batch_size: int = 32
@@ -176,8 +349,12 @@ class Predictor:
                     "replicas so that every device gets an equal share of the batch")
             self.device = self.devices[0]
         self.model = self.model.to(self.device).eval()
-        self.replicas = [(self.model, torch.device(self.device))] + [
-            (copy.deepcopy(self.model).to(d).eval(), torch.device(d)) for d in (self.devices or [])[1:]]
+        models = [(self.model, self.device)] + [
+            (copy.deepcopy(self.model).to(d).eval(), d) for d in (self.devices or [])[1:]]
+        self.replicas = [_Replica(m, torch.device(d), self.device_preproc) for m, d in models]
+        self.on_card = all(r.device.type == "cuda" for r in self.replicas)
+        self.served: set = set()  # the input signatures of the requests served
+        self.gate = _Gate()
 
     @classmethod
     def from_checkpoint(
@@ -191,48 +368,87 @@ class Predictor:
         return cls(model=assign_state(model, read_checkpoint(ckpt_path)[0], device), batch_size=batch_size,
                    device=device, device_preproc=device_preproc, devices=devices)
 
-    def _forward(self, chunk: Tuple[np.ndarray, ...]) -> List[torch.Tensor]:
-        """Each replica on its equal share of a fixed batch, all launched
-        before any result is read: the spans ``serve.h2d`` (the copies in)
-        and ``serve.forward`` (the preproc and the model's launches)."""
+    def _eager_batch(self, chunk: Tuple[np.ndarray, ...]) -> torch.Tensor:
+        """One fixed batch, eagerly: ``serve.pad`` (a short batch padded
+        with zero rows), then each replica on its equal share, ``serve.h2d``
+        (the copy in) and ``serve.forward`` (the preproc and the model), and
+        ``serve.d2h``, the copies back, which wait for the card."""
+        k = chunk[0].shape[0]
+        if k < self.batch_size:
+            with trace.span("serve.pad"):
+                chunk = tuple(np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1)) for a in chunk)
         share = self.batch_size // len(self.replicas)
         outs = []
-        for i, (model, device) in enumerate(self.replicas):
+        for i, replica in enumerate(self.replicas):
             with trace.span("serve.h2d"):
-                xs = tuple(torch.from_numpy(np.ascontiguousarray(a[i * share : (i + 1) * share])).to(device)
+                xs = tuple(torch.from_numpy(np.ascontiguousarray(a[i * share : (i + 1) * share])).to(replica.device)
                            for a in chunk)
             with trace.span("serve.forward"):
-                if self.device_preproc is not None:  # zero boxes pad to blank frames
-                    xs = tuple(self.device_preproc(*xs))
-                outs.append(model(*(_cast(x) for x in xs)))
-        return outs
+                outs.append(replica.forward(*xs))
+        with trace.span("serve.d2h"):
+            return torch.cat([o.cpu() for o in outs])
+
+    def _graphed_batch(self, chunk: Tuple[np.ndarray, ...]) -> torch.Tensor:
+        """One fixed batch on the card replicas, each launched
+        (:meth:`_Replica.launch`) before any result is read, from pinned
+        host tensors of ``batch_size`` rows whose padding rows are zeroed in
+        place (the span ``serve.pad``); ``serve.d2h`` holds the wait for the
+        copies back. The pinned tensors are freed when this returns."""
+        k = chunk[0].shape[0]
+        hosts = [torch.empty((self.batch_size, *a.shape[1:]), dtype=_torch_dtype(a.dtype), pin_memory=True)
+                 for a in chunk]
+        if k < self.batch_size:
+            with trace.span("serve.pad"):
+                for h in hosts:
+                    h[k:].zero_()
+        share = self.batch_size // len(self.replicas)
+        launched = [replica.launch(tuple(h[i * share : (i + 1) * share] for h in hosts),
+                                   tuple(a[i * share : (i + 1) * share] for a in chunk))
+                    for i, replica in enumerate(self.replicas)]
+        with trace.span("serve.d2h"):
+            for _, done in launched:
+                done.synchronize()
+        return torch.cat([host for host, _ in launched])
+
+    def _batch(self, chunk: Tuple[np.ndarray, ...], graphed: bool) -> torch.Tensor:
+        """One fixed batch, eager or graphed, in flight together with the
+        predictor's other batches, or alone where a replica will capture:
+        another thread's pinned allocation, or its free of a pinned tensor
+        copied on the capturing stream (which records an event there),
+        would break the capture."""
+        if not graphed:
+            with self.gate.among():
+                return self._eager_batch(chunk)
+        share = self.batch_size // len(self.replicas)
+        key = tuple(((share, *a.shape[1:]), _torch_dtype(a.dtype)) for a in chunk)
+        with self.gate.among() if all(r.ready(key) for r in self.replicas) else self.gate.alone():
+            return self._graphed_batch(chunk)
 
     def predict_logits(self, *inputs: np.ndarray) -> np.ndarray:
         """Any-N inputs → (N, num_classes) float32 logits via fixed-size
         batches. A call is the span ``serve.request`` (a request of its own,
-        ``utils/trace.py``), holding ``serve.pad`` for a short batch, the
-        spans of :meth:`_forward` and ``serve.d2h``, the copy back that waits
-        for the card; ``serve.rows`` and ``serve.rows_padded`` count the real
-        and the padding rows sent to the card."""
+        ``utils/trace.py``), holding ``serve.pad`` for a short batch,
+        ``serve.h2d`` and ``serve.forward`` for each replica, and
+        ``serve.d2h``, the copy back that waits for the card
+        (:meth:`_eager_batch`; on a card from the signature's second
+        request on, :meth:`_graphed_batch`); ``serve.rows`` and
+        ``serve.rows_padded`` count the real and the padding rows sent to
+        the card, and ``serve.replays`` the replicas' batches that a CUDA
+        graph's replay served."""
         n = inputs[0].shape[0]
         out: List[np.ndarray] = []
+        signature = tuple((a.shape[1:], a.dtype) for a in inputs)
+        graphed = self.on_card and signature in self.served
         with trace.span("serve.request", new_request=True, rows=n), torch.inference_mode(), \
                 model_precision(compute_dtype(self.model)):
             for start in range(0, n, self.batch_size):
                 chunk = tuple(a[start : start + self.batch_size] for a in inputs)
                 k = chunk[0].shape[0]
                 trace.count("serve.rows", k)
-                if k < self.batch_size:  # pad to the fixed batch
-                    with trace.span("serve.pad"):
-                        chunk = tuple(
-                            np.pad(a, [(0, self.batch_size - k)] + [(0, 0)] * (a.ndim - 1))
-                            for a in chunk
-                        )
+                if k < self.batch_size:
                     trace.count("serve.rows_padded", self.batch_size - k)
-                outs = self._forward(chunk)
-                with trace.span("serve.d2h"):
-                    logits = torch.cat([o.float().cpu() for o in outs])
-                out.append(logits[:k].numpy())
+                out.append(self._batch(chunk, graphed)[:k].numpy())
+        self.served.add(signature)
         return np.concatenate(out, axis=0) if out else np.zeros((0, 0), np.float32)
 
     def predict(self, *inputs: np.ndarray) -> np.ndarray:

@@ -20,7 +20,11 @@ exactly and loading into a host-batching trainer and back, graphed
 against eager ones; the log-mel operator ``mlt::log_mel`` launching the
 kernel, an exported (``torch.export``) wave model launching it, and
 ``serving.load_test`` with the device crop launching the crop kernel once a
-request; a world-1 NCCL data-parallel step against the step without a
+request; the ``Predictor``'s CUDA graphs (served waveforms at 1, 7, 32 and
+40 clips, four server threads at once, the device crop, int32 ids, two
+replicas on one card) against the model called eagerly on the same padded
+batch, ``serve.replays`` one a batch, and a forward that waits for the card
+staying eager; a world-1 NCCL data-parallel step against the step without a
 process group, and BatchNorm's global statistics over two gloo ranks
 sharing the card against one rank, and CUDA graphs of DDP steps with the
 NCCL all-reduce captured against eager steps (ranks from
@@ -864,10 +868,19 @@ def test_load_test_with_the_device_crop_launches_the_kernel(cuda_device):
 
     x, boxes = _frames_and_boxes(2 * 29, cuda_device, seed=7, h=96, w=96)
     frames, boxes = x.reshape(2, 29, 96, 96, 3).cpu().numpy(), boxes.reshape(2, 29, 4).cpu().numpy()
+    from torch.profiler import ProfilerActivity, profile
+
     predictor = serving.Predictor(get_video_model("cnn", 4), batch_size=2, device="cuda", device_preproc=device_crop)
     before = crop_resize_cuda.launch_count
-    r = serving.load_test(predictor, (frames, boxes), num_threads=3, requests_per_thread=4)
-    assert crop_resize_cuda.launch_count == before + 13 and r["requests"] == 12 and r["p99_ms"] > 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = serving.load_test(predictor, (frames, boxes), num_threads=3, requests_per_thread=4)
+    # the warm-up request calls the kernel eagerly, the first timed one on the
+    # replica's stream and under the capture; the other 11 replay the graph,
+    # which launches it on the card
+    assert crop_resize_cuda.launch_count == before + 3 and r["requests"] == 12 and r["p99_ms"] > 0
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and "crop_resize" in e.name()]
+    assert len(kernels) == 13
 
 
 def _mlp_weights():
@@ -919,3 +932,175 @@ def test_graphed_ddp_steps_over_nccl_equal_eager_ones(cuda_device, tmp_path):
     assert ranked["graphs4"] >= 1  # captured after DDP's 11 eager steps, then replayed
     assert ranked[4] == ranked[1]
 
+
+
+# ---------------------------------------------------------------- served graphs
+
+
+def _wave_model(seed=0):
+    from multimodal_lipread_torch.nn.common import flax_init_
+
+    net = WaveToLogMel(VGGWithLSTMClassifier(4, version=16, lstm_hidden=128), input_size=117)
+    return flax_init_(net, torch.Generator().manual_seed(seed))
+
+
+def _eager_logits(predictor, *inputs):
+    """The predictor's model called directly on the card, one replica's
+    share of a batch at a time, on the inputs padded to whole fixed batches
+    with zero rows."""
+    from multimodal_lipread_torch.serving import _cast
+
+    b, n = predictor.batch_size, inputs[0].shape[0]
+    share = b // len(predictor.replicas)
+    padded = [np.pad(a, [(0, -(-n // b) * b - n)] + [(0, 0)] * (a.ndim - 1)) for a in inputs]
+    outs = []
+    with torch.inference_mode(), model_precision(torch.float32):
+        for s in range(0, padded[0].shape[0], share):
+            xs = tuple(torch.from_numpy(a[s : s + share]).to("cuda") for a in padded)
+            if predictor.device_preproc is not None:
+                xs = tuple(predictor.device_preproc(*xs))
+            outs.append(predictor.model(*(_cast(x) for x in xs)).float().cpu())
+    return torch.cat(outs).numpy()[:n]
+
+
+def _traced_counters(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_lipread_torch.utils import trace
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        out = fn()
+    return out, trace.last_session()["counters"]
+
+
+def _same_logits(got, want):
+    # the graph replays the eager forward's kernels on the same padded batch
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 40])
+def test_served_waves_replay_the_eager_forward(cuda_device, k):
+    from multimodal_lipread_torch.serving import Predictor
+
+    predictor = Predictor(_wave_model(k), batch_size=32, device="cuda")
+    waves = _waves(k, "cpu", seed=k).numpy()
+    first = predictor.predict_logits(waves[:3])  # the first request runs eagerly
+    assert not predictor.replicas[0].fixed
+    second = predictor.predict_logits(waves[:5])  # eager on the replica's stream, then the capture
+    assert [f.graph is not None for f in predictor.replicas[0].fixed.values()] == [True]
+    got, counters = _traced_counters(lambda: predictor.predict_logits(waves))
+    _same_logits(first, _eager_logits(predictor, waves[:3]))
+    _same_logits(second, _eager_logits(predictor, waves[:5]))
+    _same_logits(got, _eager_logits(predictor, waves))
+    assert counters["serve.replays"] == -(-k // 32)  # one a batch
+    assert counters["serve.rows"] == k and counters.get("serve.rows_padded", 0) == -(-k // 32) * 32 - k
+
+
+@pytest.mark.cuda
+def test_server_threads_each_get_their_own_rows(cuda_device):
+    import threading
+
+    from multimodal_lipread_torch.serving import Predictor
+
+    predictor = Predictor(_wave_model(3), batch_size=32, device="cuda")
+    requests = [_waves(k, "cpu", seed=100 + k).numpy() for k in (3, 17, 32, 9)]
+    predictor.predict_logits(requests[0])
+    got = [[] for _ in requests]
+    start = threading.Barrier(len(requests))
+
+    def serve(i):
+        start.wait()
+        for _ in range(5):
+            got[i].append(predictor.predict_logits(requests[i]))
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    # the capture ran in one of the threads while the others served
+    assert [f.graph is not None for f in predictor.replicas[0].fixed.values()] == [True]
+    for req, outs in zip(requests, got):
+        want = _eager_logits(predictor, req)
+        for out in outs:
+            _same_logits(out, want)
+
+
+@pytest.mark.cuda
+def test_served_device_crop_replays_the_eager_forward(cuda_device):
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+    from multimodal_lipread_torch.serving import Predictor
+
+    x, boxes = _frames_and_boxes(5 * 29, cuda_device, seed=21, h=96, w=96)
+    frames, boxes = x.reshape(5, 29, 96, 96, 3).cpu().numpy(), boxes.reshape(5, 29, 4).cpu().numpy()
+    predictor = Predictor(get_video_model("cnn", 4), batch_size=4, device="cuda", device_preproc=device_crop)
+    predictor.predict_logits(frames[:4], boxes[:4])
+    predictor.predict_logits(frames[1:], boxes[1:])  # the capture
+    got, counters = _traced_counters(lambda: predictor.predict_logits(frames, boxes))  # one full batch, one padded
+    _same_logits(got, _eager_logits(predictor, frames, boxes))
+    assert counters["serve.replays"] == 2
+
+
+@pytest.mark.cuda
+def test_served_int32_ids_give_the_eager_forward(cuda_device):
+    from multimodal_lipread_torch.models.bert import BertClassifier, bert_small_config
+    from multimodal_lipread_torch.nn.common import flax_init_
+    from multimodal_lipread_torch.serving import Predictor
+
+    net = flax_init_(BertClassifier(bert_small_config(), 4), torch.Generator().manual_seed(6))
+    ids = _padded_ids(7, seed=2)
+    predictor = Predictor(net, batch_size=4, device="cuda")
+    predictor.predict_logits(ids[:4])
+    predictor.predict_logits(ids[2:])  # the capture
+    got, counters = _traced_counters(lambda: predictor.predict_logits(ids))
+    _same_logits(got, _eager_logits(predictor, ids))
+    assert counters["serve.replays"] == 2
+
+
+class _WaitsForTheCard(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.head = torch.nn.Linear(6, 4)
+
+    def forward(self, x):
+        scale = 1.0 + float(x.abs().amax()) * 0.0  # a host read: cannot be captured
+        return self.head(x) * scale
+
+
+@pytest.mark.cuda
+def test_a_forward_that_waits_for_the_card_stays_eager(cuda_device):
+    from multimodal_lipread_torch.serving import Predictor
+
+    torch.manual_seed(0)
+    predictor = Predictor(_WaitsForTheCard(), batch_size=4, device="cuda")
+    x = np.random.default_rng(0).standard_normal((6, 6)).astype(np.float32)
+    first = predictor.predict_logits(x[:4])  # the first request runs eagerly
+    with pytest.warns(RuntimeWarning, match="runs eagerly"):
+        got, counters = _traced_counters(lambda: predictor.predict_logits(x))  # its capture fails
+    _same_logits(first, _eager_logits(predictor, x[:4]))
+    _same_logits(got, _eager_logits(predictor, x))
+    assert counters.get("serve.replays", 0) == 0 and counters["serve.rows"] == 6
+    (replica,) = predictor.replicas
+    assert [f.graph for f in replica.fixed.values()] == [None]
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_one_card_replay_the_eager_forward(cuda_device):
+    # a stream, a lock and a graph each, on half of every batch; the
+    # replicas hold equal weights, so the model's eager halves are the reference
+    from multimodal_lipread_torch.serving import Predictor
+
+    predictor = Predictor(_wave_model(5), batch_size=32, device="cuda", devices=["cuda:0", "cuda:0"])
+    waves = _waves(40, "cpu", seed=5).numpy()
+    first = predictor.predict_logits(waves[:3])
+    predictor.predict_logits(waves[3:9])  # the captures
+    got, counters = _traced_counters(lambda: predictor.predict_logits(waves))
+    a, b = predictor.replicas
+    assert a.model is not b.model and a.stream != b.stream
+    assert all(f.graph is not None for r in (a, b) for f in r.fixed.values())
+    _same_logits(first, _eager_logits(predictor, waves[:3]))
+    _same_logits(got, _eager_logits(predictor, waves))
+    assert counters["serve.replays"] == 2 * 2  # two batches, two replicas

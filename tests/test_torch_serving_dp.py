@@ -46,7 +46,7 @@ def test_two_cpu_replicas_give_the_one_replica_logits(served):
     feats = compute_logmel_features(decode_waveforms(served["clips"]), device="cpu")
     one = serving.Predictor(model=served["model"], batch_size=4, device="cpu").predict_logits(feats)
     two = serving.Predictor(model=_copy(served), batch_size=4, devices=["cpu", "cpu"])
-    assert len(two.replicas) == 2 and two.replicas[1][0] is not two.model
+    assert len(two.replicas) == 2 and two.replicas[1].model is not two.model
     got = two.predict_logits(feats)  # 10 clips: batches of 4, 4 and 2 (+ 2 padding rows)
     assert got.shape == one.shape == (10, 4)
     np.testing.assert_allclose(got, one, atol=TOL, rtol=0)

@@ -230,3 +230,52 @@ def test_profile_dir_trace_holds_the_spans(tmp_path):
     with open(tmp_path / "trace" / "m_epoch1.trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"trainer.step", "trainer.forward", "trainer.backward", "trainer.optimizer", "loader.wait"} <= names
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]], ids=["one", "two_replicas"])
+def test_a_cpu_predictor_captures_nothing(devices):
+    predictor = serving.Predictor(_Echo(), batch_size=4, device="cpu", devices=devices)
+    x = np.arange(14, dtype=np.float32).reshape(7, 2)
+    with _traced():
+        got = predictor.predict_logits(x)
+        again = predictor.predict_logits(x)
+    np.testing.assert_array_equal(got, x)
+    np.testing.assert_array_equal(again, x)
+    session = trace.last_session()
+    assert session["counters"] == {"serve.rows": 14, "serve.rows_padded": 2}
+    assert len(_names(session, "serve.forward")) == 2 * 2 * len(predictor.replicas)
+    assert all(r.stream is None and not r.fixed for r in predictor.replicas)
+
+
+def test_a_batch_alone_waits_for_the_batches_in_flight():
+    # the predictor's gate around a capture: it waits for the batches in
+    # flight and holds back those that come while it waits or runs
+    gate, seen = serving._Gate(), []
+    inside, asked, go = threading.Event(), threading.Event(), threading.Event()
+
+    def among(name, wait=None):
+        with gate.among():
+            seen.append(name)
+            if wait is not None:
+                inside.set()
+                wait.wait(5)
+
+    def alone():
+        asked.set()
+        with gate.alone():
+            seen.append("alone")
+
+    first = threading.Thread(target=among, args=("first", go))
+    first.start()
+    assert inside.wait(5)
+    capture = threading.Thread(target=alone)
+    capture.start()
+    assert asked.wait(5)
+    with gate.cond:
+        assert gate.cond.wait_for(lambda: gate.asking, timeout=5)
+    later = threading.Thread(target=among, args=("later",))
+    later.start()
+    go.set()
+    for t in (first, capture, later):
+        t.join(5)
+    assert seen == ["first", "alone", "later"]
