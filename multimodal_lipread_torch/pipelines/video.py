@@ -23,7 +23,11 @@ Streaming, per epoch, instead of the whole corpus in memory
   ``dataset.root_dir`` are decoded on the host and their lips detected
   (``dataset.landmark_backend``); the full uint8 frames and the boxes cross
   to the card, where the crop kernel (``ops/crop_resize_cuda.py``) cuts the
-  44 × 44 lips inside the train step, as the trainer's ``device_preproc``;
+  44 × 44 lips inside the train step, as the trainer's ``device_preproc``.
+  With ``training.device_resident`` every split is read once instead
+  (:func:`full_frame_dataset`) and held on the card whole, so that only
+  indices cross a step, and ``training.steps_per_dispatch`` K > 1 runs K
+  steps, crop included, as one CUDA graph replay;
 - ``dataset.host_crop_streaming``: the same clips decoded, detected and
   cropped on the host (the reference's layout);
 - ``dataset.streaming``: the ``.npy`` lip tensors of the mirror tree, with
@@ -40,6 +44,8 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Union
 
+import numpy as np
+
 from multimodal_lipread_torch.config import Config
 from multimodal_lipread_torch.data.glips import (
     SPLITS,
@@ -48,7 +54,12 @@ from multimodal_lipread_torch.data.glips import (
     scan_glips,
     scan_lip_regions,
 )
-from multimodal_lipread_torch.data.grain_loader import FullFrameClipSource, HostCropClipSource, LipClipSource
+from multimodal_lipread_torch.data.grain_loader import (
+    FullFrameClipSource,
+    HostCropClipSource,
+    LipClipSource,
+    StreamingDataset,
+)
 from multimodal_lipread_torch.models.video import get_video_model
 from multimodal_lipread_torch.parallel.distributed import maybe_initialize_distributed
 from multimodal_lipread_torch.pipelines.common import (
@@ -63,9 +74,37 @@ from multimodal_lipread_torch.pipelines.common import (
     streaming_datasets,
     trainer_extras,
 )
-from multimodal_lipread_torch.train.trainer import Trainer, TrainerConfig
+from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
 
 VIDEO_EXTS = (".mp4", ".avi")
+READ_BATCH = 32  # records a loader batch while a full-frame split is read whole
+
+
+def full_frame_dataset(source, num_workers: int = 0) -> ArrayDataset:
+    """Every record of a full-frame source (``{frames (T, H, W, C) uint8,
+    boxes (T, 4) int32, label}``, e.g. ``FullFrameClipSource``) read once,
+    in index order, into one ``ArrayDataset`` of ``(frames, boxes)``: the
+    train, val or test split of ``dataset.device_crop`` with
+    ``training.device_resident``, which the trainer places on the device
+    whole. ``num_workers`` loader processes decode (0: this thread). Every
+    clip must have the first one's shape."""
+    stream = StreamingDataset(source, ("frames", "boxes"), worker_count=num_workers, shard_index=0, shard_count=1)
+    n = len(source)
+    frames = boxes = labels = None
+    at = 0
+    for (f, b), y in stream.epoch_batches(0, False, READ_BATCH):
+        if frames is None:
+            frames = np.empty((n,) + f.shape[1:], f.dtype)
+            boxes = np.empty((n,) + b.shape[1:], b.dtype)
+            labels = np.empty((n,), np.int32)
+        if f.shape[1:] != frames.shape[1:] or b.shape[1:] != boxes.shape[1:]:
+            raise ValueError(f"records {at}..{at + len(y) - 1} have frames {f.shape[1:]} and boxes {b.shape[1:]}, "
+                             f"the first {frames.shape[1:]} and {boxes.shape[1:]}: a resident split holds one shape")
+        frames[at : at + len(y)], boxes[at : at + len(y)], labels[at : at + len(y)] = f, b, y
+        at += len(y)
+    if frames is None:
+        raise ValueError("a full-frame split with no clips cannot be held resident")
+    return ArrayDataset(inputs=(frames, boxes), labels=labels)
 
 
 def resolve_lip_root(cfg: Config) -> str:
@@ -96,8 +135,15 @@ def main(config: Union[Config, str], resume: bool = False, device: str = "cuda")
     extra = {}
     if cfg.get("dataset.device_crop", False):
         index = scan_glips(cfg.get("dataset.root_dir"), exts=VIDEO_EXTS)
-        datasets = streaming_datasets(cfg, lambda split: FullFrameClipSource(
-            index.by_split(split), index.class_to_idx, backend=backend), ("frames", "boxes"))
+
+        def source(split):
+            return FullFrameClipSource(index.by_split(split), index.class_to_idx, backend=backend)
+
+        if cfg.get("training.device_resident", False):
+            datasets = {split: full_frame_dataset(source(split), cfg.get("dataset.num_workers", 0))
+                        for split in SPLITS}
+        else:
+            datasets = streaming_datasets(cfg, source, ("frames", "boxes"))
         from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
 
         extra["device_preproc"] = device_crop

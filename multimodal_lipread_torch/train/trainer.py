@@ -72,10 +72,13 @@ batches after the cast (``data/augment.py``), with soft-label cross
 entropy; with several data-parallel ranks the batch is the global one (one
 λ and one permutation of every rank's rows). ``profile_dir`` writes a
 ``torch.profiler`` Chrome trace of the first epoch, with the spans of
-``utils/trace.py``: ``trainer.step`` and its ``trainer.forward``,
-``trainer.backward`` and ``trainer.optimizer``, ``trainer.group`` around a
-graphed dispatch, and ``loader.wait`` around each wait for a host batch
-(with the counters ``loader.batches`` and ``loader.batches_waited``).
+``utils/trace.py``: ``trainer.step`` and its ``trainer.forward`` (with
+``trainer.preproc`` around ``device_preproc``), ``trainer.backward`` and
+``trainer.optimizer``, ``trainer.group`` around a grouped dispatch (with the
+counters ``trainer.eager_steps`` and ``trainer.replays``),
+``data.resident_place`` around placing a dataset on the device (the counter
+``data.resident_bytes``), and ``loader.wait`` around each wait for a host
+batch (with the counters ``loader.batches`` and ``loader.batches_waited``).
 ``handle_preemption`` turns SIGTERM/SIGINT into ``request_preemption``: the step in flight
 finishes, the rolling checkpoint is written from a host snapshot of the
 epoch's start (the dropout generator's state included) labelled
@@ -705,7 +708,8 @@ class Trainer:
         """``device_preproc`` (e.g. the crop of full frames to lips), then
         the cast of :meth:`_prepare`."""
         if self.config.device_preproc is not None:
-            inputs = tuple(self.config.device_preproc(*inputs))
+            with trace.span("trainer.preproc"):
+                inputs = tuple(self.config.device_preproc(*inputs))
         return tuple(self._prepare(x) for x in inputs)
 
     def _example_weights(self, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -951,12 +955,15 @@ class Trainer:
         """``ds`` on the device, placed once: a cache of three (the run's
         train, val and test), held by identity (an ``id`` alone can be
         reused once its dataset is gone); the oldest goes first, with its
-        graphs."""
+        graphs. Placing is the span ``data.resident_place``, its bytes the
+        counter ``data.resident_bytes``."""
         entry = self._device_data.get(id(ds))
         if entry is None or entry[0] is not ds:
             self._drop_graphs(id(ds))
-            data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in ds.inputs)
-            labels = torch.from_numpy(ds.labels.astype(np.int64)).to(self.device)
+            with trace.span("data.resident_place"):
+                data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in ds.inputs)
+                labels = torch.from_numpy(ds.labels.astype(np.int64)).to(self.device)
+            trace.count("data.resident_bytes", sum(t.numel() * t.element_size() for t in (*data, labels)))
             entry = self._device_data[id(ds)] = (ds, (data, labels))
             while len(self._device_data) > 3:
                 oldest = next(iter(self._device_data))
@@ -992,21 +999,30 @@ class Trainer:
         """K steps of ``step`` on one group, in the span ``trainer.group``:
         eagerly on the CPU; on the card through the dataset's graph, captured
         after running the first group for real (a replay runs no span).
-        Returns the group's (K, 4) stats."""
+        Returns the group's (K, 4) stats. Of train groups, the counter
+        ``trainer.eager_steps`` counts the steps of those run eagerly (the
+        first, and every one on the CPU) and ``trainer.replays`` the
+        replays."""
         with trace.span("trainer.group", kind=kind, steps=len(idxs)):
-            if self.device.type != "cuda" or (kind == "train" and self._ddp_warming()):
+            train = kind == "train"
+            if self.device.type != "cuda" or (train and self._ddp_warming()):
+                if train:
+                    trace.count("trainer.eager_steps", len(idxs))
                 return torch.stack([step(*self._to_device(i, w)) for i, w in zip(idxs, ws)])
             key = (kind, id(ds))
             graph = self._graphs.get(key)
             if graph is None:
                 generators = [g for g in (self.dropout_generator, self._twin_generator) if g is not None]
                 steps_before = self.step
-                graph = _StepGroupGraph(step, idxs, ws, self.device, generators if kind == "train" else ())
-                self.step = steps_before + (len(idxs) if kind == "train" else 0)  # capture ran no step
+                graph = _StepGroupGraph(step, idxs, ws, self.device, generators if train else ())
+                self.step = steps_before + (len(idxs) if train else 0)  # capture ran no step
                 self._graphs[key] = graph
+                if train:
+                    trace.count("trainer.eager_steps", len(idxs))
                 return graph.first
-            if kind == "train":
+            if train:
                 self.step += len(idxs)
+                trace.count("trainer.replays")
             return graph.replay(idxs, ws)
 
     def _ddp_warming(self) -> bool:

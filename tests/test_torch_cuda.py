@@ -13,7 +13,8 @@ log-mel kernel; the lip-crop kernel against its plain version bit for bit
 (any channel count and canvas, every cluster size, a wide frame staged in
 chunks, frames off a 16-byte boundary, inside a CUDA graph), its launch
 count and phase times, device-crop train steps against plain-crop ones,
-CUDA-graphed train steps
+the crop inside CUDA graphs of resident resnet_trans steps against the
+same steps eager, CUDA-graphed train steps
 against eager ones (dropout on), capturable optimizer checkpoints resuming
 exactly and loading into a host-batching trainer and back, graphed
 ``remat`` steps against eager remat and plain ones and graphed mixup steps
@@ -830,6 +831,39 @@ def test_device_crop_train_steps_equal_plain_crop_steps(cuda_device, tmp_path):
     finally:
         torch.backends.cudnn.deterministic = False
     assert losses[0] == losses[1]
+
+
+@pytest.mark.cuda
+def test_graphed_crop_steps_equal_eager_crop_steps(cuda_device, tmp_path):
+    """The crop kernel inside CUDA graphs of K = 4 train steps of
+    resnet_trans on full frames held on the card, against the same steps
+    dispatched one by one: two epochs of 2 groups (the first eager, then
+    captured; three replays) with bit-equal stats and parameters."""
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+
+    frames, boxes = _frames_and_boxes(32 * 29, "cpu", seed=7, h=96, w=96)
+    ds = ArrayDataset((frames.reshape(32, 29, 96, 96, 3).numpy(), boxes.reshape(32, 29, 4).numpy()),
+                      np.arange(32) % 4)
+    runs = []
+    torch.backends.cudnn.deterministic = True  # cuDNN's default weight gradients sum in a run-dependent order
+    try:
+        for k in (1, 4):
+            t = Trainer(get_video_model("resnet_trans", 4), TrainerConfig(
+                model_name="r", num_classes=4, batch_size=4, seed=0, host_prefetch=0, device_resident=True,
+                steps_per_dispatch=k, device_preproc=device_crop, metrics_dir=str(tmp_path / f"k{k}" / "m"),
+                checkpoints_dir=str(tmp_path / f"k{k}" / "c")), device=cuda_device)
+            t.init_state()
+            rng = np.random.default_rng(0)
+            runs.append(([t.train_epoch(ds, rng, epoch=e) for e in range(2)], t))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (eager, te), (graphed, tg) = runs
+    assert [k for k, _ in tg._graphs] == ["train"] and te.step == tg.step == 16
+    assert [(m.loss, m.acc) for m in eager] == [(m.loss, m.acc) for m in graphed]
+    a, b = te.model.state_dict(), tg.model.state_dict()
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    assert te.dropout_generator.get_state().equal(tg.dropout_generator.get_state())
 
 
 @pytest.mark.cuda
