@@ -35,8 +35,16 @@ Parameters are redrawn with Flax's default initializers from ``seed``
 (``nn.common.flax_init_``); dropout masks come from a ``torch.Generator``
 seeded with ``seed + 1`` on the trainer's device (the JAX package's ``rbg``
 keys have no torch counterpart, so trajectories match the JAX trainer's
-only with dropout off). A float32 model trains without TF32
-(``utils/precision.py``).
+only with dropout off). A float32 model trains without TF32, and cuDNN
+picks the engines of the forward's and backward's convolutions by timing
+them on the step's own shapes, unless the caller set
+``cudnn.deterministic`` (``utils/precision.py``). The first step of a kind
+(train or eval) on inputs of new shapes or dtypes runs in the span
+``trainer.conv_tune`` with 1 added to the counter
+``trainer.conv_tune_rounds``: it marks where cuDNN may meet new
+convolution shapes, and counts such steps whether or not the model has
+convolutions or the process met the shapes before. A graphed group's
+first run is eager, so a capture meets only shapes timed before it.
 
 Data: an ``ArrayDataset`` (the whole corpus in host memory), or a
 ``data.grain_loader.StreamingDataset`` read one epoch at a time, whose
@@ -161,7 +169,7 @@ from multimodal_lipread_torch.train.checkpoint import (
 from multimodal_lipread_torch.train.schedule import ReduceLROnPlateau
 from multimodal_lipread_torch.utils import trace
 from multimodal_lipread_torch.utils.metrics_log import MetricLogger
-from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision
+from multimodal_lipread_torch.utils.precision import compute_dtype, model_precision, timed_conv_engines
 
 
 @dataclasses.dataclass
@@ -345,8 +353,9 @@ class _StepGroupGraph:
     The static (K, batch) index and weight buffers feed the calls; the graph
     returns the sum of their (Σ loss·w, correct, Σ weights, Σ w). Building
     it runs the first group for real, eagerly, on the capture stream (so
-    that lazily made state, Adam's moments, cuBLAS workspaces and the
-    log-mel kernel's scratch, exists before capture), and then captures the
+    that lazily made state, Adam's moments, cuBLAS workspaces, the
+    log-mel kernel's scratch and cuDNN's timed engine choices, exists before
+    capture; a capture never times an engine), and then captures the
     same K calls, which run no work. ``generators`` (the dropout generator
     and, under remat, its twin) are registered with the graph: each replay
     draws from where the last draw left them, as eager steps do. Both
@@ -452,6 +461,8 @@ class Trainer:
         self._capturable = self.device.type == "cuda" and config.device_resident
         self._device_data: Dict[int, Tuple[Any, Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]] = {}
         self._graphs: Dict[Tuple[str, int], _StepGroupGraph] = {}
+        # (kind, shapes and dtypes of the inputs) of every step taken (_conv_tune)
+        self._stepped: set = set()
         self._preempted = False
         self.exchange_bytes = 0  # bytes mixup's last exchange all-reduced (_global_rows)
 
@@ -790,6 +801,22 @@ class Trainer:
         full = global_count == ranks * rows
         return tuple(torch.where(full, m, x) for m, x in zip(mixed, xs)), torch.where(full, mixed_onehot, onehot)
 
+    def _conv_tune(self, kind: str, inputs: Sequence[torch.Tensor]):
+        """Around the first step of ``kind`` ("train" or "eval") on inputs
+        of a new signature, their shapes and dtypes (which fix those of the
+        prepared inputs), the span ``trainer.conv_tune``, and 1 on the
+        counter ``trainer.conv_tune_rounds``: the first step of a kind on
+        new input shapes, where cuDNN times the engines of any convolution
+        shape the process has not met (``timed_conv_engines``). Nothing
+        around the steps after it. The set is this trainer's: cuDNN's own
+        choices are the process's."""
+        signature = (kind, *((tuple(x.shape), x.dtype) for x in inputs))
+        if signature in self._stepped:
+            return contextlib.nullcontext()
+        self._stepped.add(signature)
+        trace.count("trainer.conv_tune_rounds")
+        return trace.span("trainer.conv_tune", kind=kind)
+
     def train_step(self, inputs: Sequence[torch.Tensor], labels: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
         """One optimizer step on this rank's slice of a batch. Returns the
@@ -797,12 +824,13 @@ class Trainer:
         nothing is read back. The span ``trainer.step`` holds
         ``trainer.forward`` (inputs through the weighted loss),
         ``trainer.backward`` (and the flat all-reduce under partition rules)
-        and ``trainer.optimizer``."""
-        with trace.span("trainer.step"):
+        and ``trainer.optimizer``; a first step on new shapes lies in
+        ``trainer.conv_tune`` (:meth:`_conv_tune`)."""
+        with self._conv_tune("train", inputs), trace.span("trainer.step"):
             self.model.train()
             if self._pp:
                 return self._pp_train_step(inputs, labels, weights)
-            with model_precision(self.compute_dtype):
+            with model_precision(self.compute_dtype), timed_conv_engines():
                 with trace.span("trainer.forward"):
                     xs = self._prepare_inputs(inputs)
                     w = self._example_weights(labels, weights)
@@ -840,7 +868,7 @@ class Trainer:
         """The GPipe step (``parallel/pipeline.py``) and Adam."""
         from multimodal_lipread_torch.parallel.pipeline import gpipe_train_step, reduce_grads
 
-        with model_precision(self.compute_dtype):
+        with model_precision(self.compute_dtype), timed_conv_engines():
             (ids,) = self._prepare_inputs(inputs)
             w = self._example_weights(labels, weights)
             self.optimizer.zero_grad(set_to_none=True)
@@ -858,7 +886,7 @@ class Trainer:
         """Forward in eval mode (running BatchNorm statistics); returns the
         device tensor (Σ loss·w, correct, Σ weights, Σ w)."""
         self.model.eval()
-        with model_precision(self.compute_dtype):
+        with self._conv_tune("eval", inputs), model_precision(self.compute_dtype), timed_conv_engines():
             logits = self.model(*self._prepare_inputs(inputs), **self._apply_kwargs).float()
         w = self._example_weights(labels, weights)
         ce = F.cross_entropy(logits, labels, reduction="none")

@@ -7,6 +7,14 @@ float32, so :func:`model_precision` turns TF32 off for cuDNN and for cuBLAS
 matmuls around the forward and backward of a float32 model, and restores
 the process's setting afterwards. A bfloat16 model computes in bf16, which
 TF32 does not touch, so nothing is changed for it.
+
+:func:`timed_conv_engines` lets cuDNN time its convolution engines on each
+new shape inside a block (``torch.backends.cudnn.benchmark``) instead of
+taking its heuristic's first pick, unless the caller asked for
+``cudnn.deterministic``; the trainer's forward and backward run under it.
+cuDNN keeps one choice a shape, dtype and layout for the whole process,
+and times only among the engines the block's precision allows: under
+:func:`model_precision` a float32 model gets no TF32 engine.
 """
 
 from __future__ import annotations
@@ -42,3 +50,20 @@ def model_precision(dtype: torch.dtype) -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def timed_conv_engines() -> Iterator[None]:
+    """cuDNN picks each convolution's engine by timing the candidates on the
+    first call of its shape inside the block; only
+    ``torch.backends.cudnn.benchmark`` is set, and its previous value is
+    restored on exit. Under ``cudnn.deterministic`` the caller's value
+    stands: timing could pick other engines in another process, and runs
+    that repeat bit for bit need the heuristic's pick."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark
+    cudnn.benchmark = saved or not cudnn.deterministic
+    try:
+        yield
+    finally:
+        cudnn.benchmark = saved

@@ -867,6 +867,62 @@ def test_graphed_crop_steps_equal_eager_crop_steps(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_graphed_resnet_trans_groups_time_their_engines_before_the_capture(cuda_device, tmp_path):
+    """cuDNN's timed engine choice (``timed_conv_engines``) in CUDA graphs
+    of K = 4 resident resnet_trans steps: the eager first group holds the
+    one round (``trainer.conv_tune``), the capture and the replays add none,
+    every forward (eager or captured) runs with ``cudnn.benchmark`` on and a
+    float32 model's TF32 off, and the caller's flags come back after each
+    epoch; an eval group likewise."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_lipread_torch.ops.crop_resize_cuda import device_crop
+    from multimodal_lipread_torch.train.trainer import ArrayDataset, Trainer, TrainerConfig
+    from multimodal_lipread_torch.utils import trace
+
+    frames, boxes = _frames_and_boxes(32 * 29, "cpu", seed=11, h=96, w=96)
+    ds = ArrayDataset((frames.reshape(32, 29, 96, 96, 3).numpy(), boxes.reshape(32, 29, 4).numpy()),
+                      np.arange(32) % 4)
+    t = Trainer(get_video_model("resnet_trans", 4), TrainerConfig(
+        model_name="r", num_classes=4, batch_size=4, seed=0, host_prefetch=0, device_resident=True,
+        steps_per_dispatch=4, device_preproc=device_crop, metrics_dir=str(tmp_path / "m"),
+        checkpoints_dir=str(tmp_path / "c")), device=cuda_device)
+    t.init_state()
+    seen = []  # (capturing, cudnn.benchmark, cudnn.allow_tf32, time) at each forward
+    t.model.register_forward_hook(lambda *_: seen.append((
+        torch.cuda.is_current_stream_capturing(), torch.backends.cudnn.benchmark,
+        torch.backends.cudnn.allow_tf32, time.time_ns())))
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32)
+    sessions = []
+    try:
+        cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32 = False, False, True
+        rng = np.random.default_rng(0)
+        for run in (lambda: t.train_epoch(ds, rng, epoch=0), lambda: t.train_epoch(ds, rng, epoch=1),
+                    lambda: t.evaluate(ds), lambda: t.evaluate(ds)):
+            with profile(activities=[ProfilerActivity.CPU]):
+                run()
+            torch.cuda.synchronize()
+            sessions.append(trace.last_session())
+            assert (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32) == (False, False, True)
+    finally:
+        cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32 = saved
+    assert sorted(k for k, _ in t._graphs) == ["eval", "train"] and t.step == 16
+    assert all(benchmark and not tf32 for _c, benchmark, tf32, _t in seen)
+    captured = [at for capturing, _b, _f, at in seen if capturing]
+    assert len(captured) == 8  # the train group's 4 forwards and the eval group's 4
+    rounds = [s["counters"].get("trainer.conv_tune_rounds", 0) for s in sessions]
+    tunes = [[s for s in session["spans"] if s["name"] == "trainer.conv_tune"] for session in sessions]
+    assert rounds == [1, 0, 1, 0] and [len(x) for x in tunes] == [1, 0, 1, 0]
+    assert [x[0]["attrs"] for x in tunes if x] == [{"kind": "train"}, {"kind": "eval"}]
+    for (tune,), first_capture in zip((tunes[0], tunes[2]), (captured[0], captured[4])):
+        assert tune["end_ns"] < first_capture  # the round ends in the eager group, before its capture
+    assert sessions[1]["counters"]["trainer.replays"] == 2
+
+
+@pytest.mark.cuda
 def test_the_log_mel_operator_is_the_kernel_on_the_card(cuda_device):
     wave = _waves(3, cuda_device, seed=4)
     before = logmel_cuda.launch_count

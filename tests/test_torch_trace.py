@@ -187,7 +187,11 @@ def test_grouped_dispatch_records_its_groups(tmp_path):
     groups = _names(session, "trainer.group")
     assert [g["attrs"] for g in groups] == [{"kind": "train", "steps": 2}] * 2
     steps = _assert_steps(session, 5)
-    assert sorted(s["parent"] for s in steps if s["parent"] is not None) == sorted(
+    # the first step, on new shapes, lies in its trainer.conv_tune span inside the first group
+    (tune,) = _names(session, "trainer.conv_tune")
+    assert tune["parent"] == groups[0]["id"] and session["counters"]["trainer.conv_tune_rounds"] == 1
+    parents = [tune["parent"] if s["parent"] == tune["id"] else s["parent"] for s in steps]
+    assert sorted(p for p in parents if p is not None) == sorted(
         [g["id"] for g in groups] * 2)  # the fifth, a tail, runs on its own
 
 
